@@ -1,0 +1,36 @@
+"""Device placement and the one arithmetic helper the ported numerics need."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. A CUDA device must exist: with
+    no GPU the call raises instead of carrying on on the CPU — pass
+    `device="cpu"` to ask for the CPU.
+
+    Also pins fp32 numerics: cuDNN convolutions default to TF32 on the
+    card (about three decimal digits), so both TF32 switches are turned
+    off and convolutions and matmuls run in full fp32 like the JAX
+    reference."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
+    """`num / den` for a Python scalar `num`, as an IEEE division.
+
+    `float / tensor` in PyTorch is `tensor.reciprocal() * float` — two
+    roundings, not one — so it can differ in the last bit from the
+    reference's `num / den`. Dividing a same-dtype 0-d tensor keeps one
+    correctly rounded division. (A filled tensor, not `new_tensor`: on the
+    card that would be a host-to-device copy that waits for the stream.)"""
+    return torch.full_like(den, num).div_(den)

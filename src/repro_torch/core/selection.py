@@ -1,0 +1,55 @@
+"""Participant selection: top-K ranking + baseline selection mechanisms.
+
+Ranking semantics match `repro.core.selection`: stable descending order,
+ties broken toward the lower device index (`lax.top_k`'s rule). That is
+a stable descending `torch.sort`, never `torch.topk`, which promises no
+order among ties. The random draws are arguments (the round's
+`RoundNoise`), not drawn here.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def top_k_select(utils: torch.Tensor, k: int,
+                 available: torch.Tensor) -> torch.Tensor:
+    """Boolean (S,) mask of the top-k available devices (Algorithm 1,
+    line 15: RankingDevice). k beyond the fleet size selects every
+    available device."""
+    k = min(k, utils.shape[-1])
+    if k <= 0:
+        return torch.zeros_like(available)
+    masked = torch.where(available, utils, NEG)
+    idx = torch.sort(masked, descending=True, stable=True).indices[:k]
+    sel = torch.zeros_like(available)
+    sel[idx] = True
+    return sel & available
+
+
+def random_select(u: torch.Tensor, k: int, available: torch.Tensor) -> torch.Tensor:
+    """Uniform-random K among available devices, ranked by the uniform
+    draw `u` (S,)."""
+    return top_k_select(u, k, available)
+
+
+def _explore_slots(eps: float, k: int) -> int:
+    """ε-greedy exploration quota: round(ε·K), at least one slot for any
+    positive ε and exactly zero for ε ≤ 0."""
+    if eps <= 0:
+        return 0
+    return min(k, max(1, int(round(eps * k))))
+
+
+def epsilon_greedy(u: torch.Tensor, utils: torch.Tensor, k: int,
+                   available: torch.Tensor, eps: float = 0.1) -> torch.Tensor:
+    """Oort's exploit/explore split: (1−ε)K by utility, εK by the uniform
+    draw `u` among the rest."""
+    k = min(k, available.shape[-1])
+    if k <= 0:
+        return torch.zeros_like(available)
+    k_explore = _explore_slots(eps, k)
+    sel_x = top_k_select(utils, k - k_explore, available)
+    sel_r = random_select(u, k_explore, available & ~sel_x)
+    return sel_x | sel_r

@@ -1,0 +1,114 @@
+"""Dispatch for the fused utility → top-K selection.
+
+`select_topk` is the wrapper: tensors on the CPU run the plain version
+(`ref.select_topk`); tensors on a CUDA device launch the hand-written
+kernel (`csrc/rewafl_select.cu`) or raise — there is no fallback from
+the kernel to the plain version. `launches` counts kernel launches (one
+per call that launches; the plain version does not count).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import selection as sel
+from repro_torch.core import utility as util
+from repro_torch.kernels import _build
+from repro_torch.kernels.rewafl_select import ref
+
+launches = 0   # kernel launches since the last reset (a plain counter)
+
+_P = ctypes.c_void_p
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("rewafl_select")
+    lib.rewafl_select.argtypes = (
+        [_P] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [_P] * 4)
+    lib.rewafl_select.restype = ctypes.c_int
+    for fn in (lib.rewafl_select_tile, lib.rewafl_select_max_k):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    return lib
+
+
+def _launch(available, ui, rnd, *, k_exploit, k_explore, T_round, alpha, beta):
+    global launches
+    S = available.shape[0]
+    K = k_exploit + k_explore
+    leaves = tuple(ui) + ((rnd,) if k_explore > 0 else ())
+    dev = available.device
+    for x in leaves:
+        if (x.device != dev or x.dtype != torch.float32 or x.shape != (S,)
+                or not x.is_contiguous()):
+            raise ValueError("rewafl_select: every leaf must be a contiguous "
+                             f"(S,) float32 tensor on {dev}")
+    if available.dtype != torch.bool or not available.is_contiguous():
+        raise ValueError("rewafl_select: `available` must be a contiguous "
+                         "bool tensor")
+    lib = _lib()
+    if not 1 <= K <= min(S, lib.rewafl_select_max_k()):
+        raise ValueError(f"rewafl_select: K={K} outside [1, min(S, "
+                         f"{lib.rewafl_select_max_k()})]")
+    n_blocks = -(-S // lib.rewafl_select_tile())
+    kc = K if k_explore > 0 else 0
+    scratch = torch.empty(n_blocks * (k_exploit + kc), dtype=torch.int64, device=dev)
+    idx = torch.empty(K, dtype=torch.int32, device=dev)
+    live = torch.empty(K, dtype=torch.int32, device=dev)
+    r = rnd if k_explore > 0 else ui.stat   # not read when k_explore == 0
+    # `scratch` returns to PyTorch's caching allocator when this returns;
+    # its reuse is ordered on this stream, after the kernel
+    err = lib.rewafl_select(
+        *(x.data_ptr() for x in ui), available.data_ptr(), r.data_ptr(),
+        S, k_exploit, k_explore, T_round, alpha, beta,
+        scratch.data_ptr(), idx.data_ptr(), live.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rewafl_select kernel launch failed: CUDA error {err}")
+    launches += 1
+    return idx, live
+
+
+def select_topk(available: torch.Tensor, ui: util.UtilityInputs,
+                rnd: Optional[torch.Tensor], *, k_exploit: int, k_explore: int,
+                T_round: float, alpha: float, beta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((K,) int32 device indices, (K,) int32 live flags) of the ε-greedy
+    top-K by the Eqn-2 utility: exploit slots first, then explore slots
+    drawn by `rnd` among the rest; each half in rank order, ties to the
+    lower index, dead slots (index 0, live 0)."""
+    kw = dict(k_exploit=k_exploit, k_explore=k_explore, T_round=float(T_round),
+              alpha=float(alpha), beta=float(beta))
+    if available.device.type == "cpu":
+        return ref.select_topk(available, ui, rnd, **kw)
+    if available.device.type != "cuda":
+        raise ValueError(f"rewafl_select: unsupported device {available.device}")
+    return _launch(available, ui, rnd, **kw)
+
+
+def mask_from_slots(idx: torch.Tensor, live: torch.Tensor, S: int) -> torch.Tensor:
+    """(S,) bool mask of the live slots. Dead slots scatter to the extra
+    index S, which is sliced off."""
+    m = torch.zeros(S + 1, dtype=torch.bool, device=idx.device)
+    m[torch.where(live > 0, idx, S).long()] = True
+    return m[:S]
+
+
+def select_mask(u: Optional[torch.Tensor], k: int, available: torch.Tensor,
+                eps: float, ui: util.UtilityInputs, *, T_round: float,
+                alpha: float, beta: float) -> torch.Tensor:
+    """(S,) ε-greedy selection mask over the Eqn-2 utility computed from
+    the `ui` leaves — the `rea` selector of the round. `u` is the (S,)
+    uniform explore draw (unused at ε = 0)."""
+    S = available.shape[-1]
+    k_eff = min(k, S)
+    if k_eff <= 0:
+        return torch.zeros_like(available)
+    k_explore = sel._explore_slots(eps, k_eff)
+    idx, live = select_topk(available, ui, u, k_exploit=k_eff - k_explore,
+                            k_explore=k_explore, T_round=T_round,
+                            alpha=alpha, beta=beta)
+    return mask_from_slots(idx, live, S)

@@ -1,0 +1,116 @@
+"""Chunked multi-round FL driver.
+
+`run_rounds` runs rounds back to back on the device and touches the host
+only at chunk boundaries: each round's metrics stay on the device, and a
+chunk's dense history (per-round scalars plus the per-device `selected`
+and `H` traces) is stacked and copied to the host once, after the chunk.
+Accuracy (and so the early stop) is evaluated only there, as in
+`repro.launch.engine.run_rounds` — a campaign overshoots its target by
+at most chunk_size − 1 rounds.
+
+Each round's random numbers come from one `torch.Generator` on the
+device seeded from `seed`, or from `noise_fn(round_idx)` when given
+(the parity tests hand the port the reference's draws that way).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.common import resolve_device
+from repro_torch.core.methods import MethodSpec
+from repro_torch.core.round import (FLConfig, RoundNoise, draw_noise,
+                                    make_round_body)
+from repro_torch.core.state import FleetState, init_fleet_state
+from repro_torch.models.fl_models import FLModel, Params
+from repro_torch.sim.devices import DeviceFleet
+
+# the round's per-device leaves that dense history drops, as the
+# reference's does: only `selected` and `H` are kept as (R, S) traces
+DROPPED_PER_DEVICE = ("residual_energy", "staleness")
+
+
+@dataclasses.dataclass
+class EngineResult:
+    params: Params
+    state: FleetState
+    history: Dict[str, np.ndarray]   # per-round arrays, length rounds_run
+    rounds_run: int
+    reached_round: Optional[int]     # first chunk-boundary round ≥ target
+    acc_curve: np.ndarray            # one accuracy per completed chunk
+    # per-chunk host wall clock (each ends in the history copy, which
+    # waits for the chunk) + rounds per chunk
+    chunk_wall_s: Optional[np.ndarray] = None
+    chunk_rounds: Optional[np.ndarray] = None
+
+
+def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
+               cy: torch.Tensor, cfg: FLConfig, method: MethodSpec, *,
+               rounds: int, seed: int = 0, params: Optional[Params] = None,
+               state: Optional[FleetState] = None, chunk_size: int = 8,
+               eval_fn: Optional[Callable] = None,
+               target_acc: Optional[float] = None,
+               noise_fn: Optional[Callable[[int], RoundNoise]] = None,
+               device="cuda") -> EngineResult:
+    """Run up to `rounds` rounds in chunks of `chunk_size`, early-stopping
+    on `target_acc` (needs `eval_fn`) at chunk boundaries. Every tensor
+    argument must already be on `device`."""
+    dev = resolve_device(device)
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    for name, x in (("fleet", fleet.type_id), ("cx", cx), ("cy", cy)):
+        if x.device.type != dev.type:
+            raise ValueError(f"{name} is on {x.device}, the run on {dev}")
+    S, n = cx.shape[0], cx.shape[1]
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    if state is None:
+        state = init_fleet_state(fleet, H0=cfg.policy.H0)
+    body = make_round_body(model, cfg, method)
+    H_max = cfg.policy.H0 if method.policy == "fixed" else cfg.policy.H_max
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def noise(r: int) -> RoundNoise:
+        if noise_fn is not None:
+            return noise_fn(r)
+        return draw_noise(gen, S, cfg.n_select, H_max, cfg.batch_size, n)
+
+    host: Dict[str, List[np.ndarray]] = {}
+    acc_curve: List[float] = []
+    chunk_wall: List[float] = []
+    chunk_len: List[int] = []
+    reached = None
+    done = 0
+    while done < rounds:
+        length = min(chunk_size, rounds - done)
+        t0 = time.time()
+        ms = []
+        for r in range(done, done + length):
+            params, state, m = body(params, state, fleet, cx, cy, noise(r), r)
+            ms.append(m)
+        for k in ms[0]:
+            if k not in DROPPED_PER_DEVICE:   # one copy per key per chunk
+                host.setdefault(k, []).append(
+                    torch.stack([m[k] for m in ms]).cpu().numpy())
+        done += length
+        chunk_len.append(length)
+        stop = False
+        if eval_fn is not None:
+            acc = float(eval_fn(params))
+            acc_curve.append(acc)
+            if target_acc is not None and acc >= target_acc:
+                reached = done - 1
+                stop = True
+        chunk_wall.append(time.time() - t0)
+        if stop:
+            break
+    history = {k: np.concatenate(v) for k, v in host.items()}
+    return EngineResult(params=params, state=state, history=history,
+                        rounds_run=done, reached_round=reached,
+                        acc_curve=np.asarray(acc_curve, np.float64),
+                        chunk_wall_s=np.asarray(chunk_wall, np.float64),
+                        chunk_rounds=np.asarray(chunk_len, np.int64))

@@ -1,0 +1,158 @@
+"""The paper's local model: the 2-layer CNN [McMahan et al.].
+
+Uniform FL-model API (used by `core.round`), functional over a flat
+parameter dict as in the reference:
+  init(gen)                      -> params
+  apply(params, x)               -> logits (B, n_classes)
+  per_sample_loss(params, batch) -> (B,) fp32   (feeds statistical utility)
+  loss(params, batch)            -> scalar
+  accuracy(params, batch)        -> scalar
+
+Parameter names are the reference tree's paths joined by dots
+("conv1.w", ...), and every leaf keeps the reference layout: conv
+weights HWIO, fc1 rows in NHWC-flatten order. `params_from_jax` /
+`params_to_jax` move a tree between the packages leaf for leaf, and
+`ParamLayout` packs the leaves into one flat vector in the reference's
+leaf order (sorted paths).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from repro_torch.common import resolve_device
+from repro_torch.nn import layers
+
+Params = Dict[str, torch.Tensor]
+
+
+class CNN(nn.Module):
+    """conv3×3 → relu → pool2 → conv3×3 → relu → pool2 → fc → relu → fc,
+    over NHWC images."""
+
+    def __init__(self, input_shape: Tuple[int, int, int], n_classes: int, *,
+                 c1: int = 16, c2: int = 32, d_fc: int = 128):
+        super().__init__()
+        H, W, C = input_shape
+        self.conv1 = layers.Conv2d(C, c1, 3)
+        self.conv2 = layers.Conv2d(c1, c2, 3)
+        self.fc1 = layers.Dense((H // 4) * (W // 4) * c2, d_fc)
+        self.fc2 = layers.Dense(d_fc, n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = layers.max_pool2d(torch.relu(self.conv1(x)))
+        h = layers.max_pool2d(torch.relu(self.conv2(h)))
+        h = h.reshape(h.shape[0], -1)   # NHWC flatten, as the reference
+        return self.fc2(torch.relu(self.fc1(h)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamLayout:
+    """Leaf names (reference leaf order) and shapes of a parameter dict,
+    and their packing into one flat vector. `views` works on any leading
+    batch shape, so a (K, P) buffer of K client models unpacks to
+    (K, ...) leaves that alias it."""
+    names: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+
+    @property
+    def sizes(self) -> Tuple[int, ...]:
+        return tuple(int(np.prod(s)) for s in self.shapes)
+
+    @property
+    def size(self) -> int:
+        return sum(self.sizes)
+
+    def flatten(self, params: Params) -> torch.Tensor:
+        return torch.cat([params[n].reshape(-1) for n in self.names])
+
+    def views(self, flat: torch.Tensor) -> Params:
+        out, off = {}, 0
+        for n, shape, size in zip(self.names, self.shapes, self.sizes):
+            out[n] = flat[..., off:off + size].unflatten(-1, shape)
+            off += size
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FLModel:
+    name: str
+    module: nn.Module
+    layout: ParamLayout
+    param_bits: int   # uplink payload size at 32 bits per parameter
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Fresh parameters on `gen.device`: fan-in-scaled normal weights,
+        zero biases (the reference's initializer, not its draws)."""
+        out = {}
+        for mod_name, mod in self.module.named_children():
+            for leaf, v in mod.init(gen).items():
+                out[f"{mod_name}.{leaf}"] = v
+        return out
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return functional_call(self.module, params, (x,))
+
+    def per_sample_loss(self, params: Params, batch) -> torch.Tensor:
+        return layers.per_example_ce(self.apply(params, batch["x"]), batch["y"])
+
+    def loss(self, params: Params, batch) -> torch.Tensor:
+        return self.per_sample_loss(params, batch).mean()
+
+    def accuracy(self, params: Params, batch) -> torch.Tensor:
+        logits = self.apply(params, batch["x"])
+        return (logits.argmax(-1) == batch["y"]).float().mean()
+
+
+def _fl_model(name: str, module: nn.Module) -> FLModel:
+    named = dict(module.named_parameters())
+    names = tuple(sorted(named))
+    layout = ParamLayout(names, tuple(tuple(named[n].shape) for n in names))
+    return FLModel(name, module, layout, param_bits=layout.size * 32)
+
+
+def make_fl_model(task: str, *, small: bool = False) -> FLModel:
+    """Paper image tasks: cnn@mnist, cnn@cifar10. ``small=True`` is the
+    reference's width-reduced CPU proxy (c1=8, c2=16, d_fc=32); the
+    paper-scale widths are the defaults."""
+    kw = dict(c1=8, c2=16, d_fc=32) if small else {}
+    if task == "cnn@mnist":
+        return _fl_model("cnn", CNN((28, 28, 1), 10, **kw))
+    if task == "cnn@cifar10":
+        return _fl_model("cnn", CNN((32, 32, 3), 10, **kw))
+    if task in ("cnn@har", "lstm@shakespeare"):
+        raise NotImplementedError(f"{task} is not ported yet")
+    raise ValueError(task)
+
+
+def params_from_jax(tree, device="cuda") -> Params:
+    """A reference parameter tree (nested dicts of arrays) → port params."""
+    dev = resolve_device(device)
+    out = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + ".")
+            else:
+                out[prefix + k] = torch.tensor(np.asarray(v), device=dev)
+
+    walk(tree, "")
+    return out
+
+
+def params_to_jax(params: Params) -> dict:
+    """Port params → a reference-shaped nested dict of numpy arrays."""
+    out: dict = {}
+    for name, v in params.items():
+        node = out
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v.detach().cpu().numpy()
+    return out

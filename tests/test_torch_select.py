@@ -1,0 +1,151 @@
+"""Parity of the port's REWAFL selection with the reference.
+
+The port's plain version of the selection kernel (`kernels/rewafl_select/
+ref.py`, what a CPU tensor runs) is held against the reference's Pallas
+kernel in interpret mode (`select_mask(..., backend="pallas",
+interpret=True)`, which pads S to the tile grid) and against its oracle
+`ref.select_ref`: masks bitwise, and the kernel's (K,) live flags and
+live indices bitwise. Both sides get the same uniform explore draw. The
+CUDA kernel itself is held against the plain version on the card
+(`test_torch_cuda.py`).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import selection as jsel
+from repro.core import utility as jutil
+from repro.kernels.rewafl_select import ops as jops
+from repro.kernels.rewafl_select import ref as jref
+from repro.kernels.rewafl_select import rewafl_select as jkernel
+from repro_torch.core import selection as sel
+from repro_torch.core.utility import UtilityInputs
+from repro_torch.kernels.rewafl_select import ops, ref
+
+K = 8
+
+
+def _case(seed, S, case):
+    """(avail, five f32 leaves, uniform draw) as numpy; `case` adds ties
+    or fewer than K available devices."""
+    rng = np.random.RandomState(seed)
+    stat, t, e = rng.uniform(0, 1e4, S), rng.uniform(1, 120, S), rng.uniform(10, 2e3, S)
+    residual, e0 = rng.uniform(1e3, 6e4, S), rng.uniform(100, 3e3, S)
+    u = rng.uniform(0, 1, S)
+    avail = rng.uniform(0, 1, S) >= 0.3
+    if case == "ties":        # 2K devices share the top utility and draw
+        blk = rng.permutation(S)[:2 * K]
+        stat[blk], t[blk], e[blk], residual[blk], e0[blk] = 1e4, 1.0, 10.0, 6e4, 100.0
+        u[blk] = 0.999
+        avail[blk] = True
+    elif case == "under_k":
+        avail = np.zeros(S, bool)
+        avail[rng.permutation(S)[:K // 2 + 1]] = True
+    f32 = [np.asarray(a, np.float32) for a in (stat, t, e, residual, e0, u)]
+    return avail, f32[:5], f32[5]
+
+
+def _port(avail, leaves, u):
+    return (torch.from_numpy(avail), UtilityInputs(*map(torch.from_numpy, leaves)),
+            torch.from_numpy(u))
+
+
+def _jax_ui(leaves):
+    return jutil.UtilityInputs(*map(jnp.asarray, leaves))
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "under_k"])
+@pytest.mark.parametrize("S", [100, 300])
+@pytest.mark.parametrize("eps", [0.0, 0.25, 1.0])
+def test_mask_matches_pallas_interpret_and_oracle(eps, S, case):
+    avail, leaves, _ = _case(S + len(case), S, case)
+    key = jax.random.PRNGKey(S)
+    u = np.array(jax.random.uniform(key, (S,)))    # the reference's draw
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    ta, tui, tu = _port(avail, leaves, u)
+    got = ops.select_mask(tu, K, ta, eps, tui, **kw).numpy()
+    jav, jui = jnp.asarray(avail), _jax_ui(leaves)
+    want = jref.select_ref(key, K, jav, eps, jui, **kw)
+    pallas = jops.select_mask(key, K, jav, eps, ui=jui, backend="pallas",
+                              interpret=True, **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+    assert got.sum() == min(K, avail.sum()) and not (got & ~avail).any()
+
+
+@pytest.mark.parametrize("k_exploit,k_explore", [(8, 0), (6, 2), (0, 8)])
+@pytest.mark.parametrize("case", ["random", "ties", "under_k"])
+def test_slots_match_pallas_kernel_bitwise(k_exploit, k_explore, case):
+    """The plain version returns what the kernel returns: (K,) indices
+    and live flags, exploit slots first, each half in rank order. Live
+    flags and live indices are bitwise the reference kernel's; a dead
+    slot's index is 0 in the port and unspecified in the reference (only
+    the mask reads it, through the live flag). S = 200 runs the
+    reference kernel over two 128-tiles (padded with unavailable
+    devices), so its cross-tile merge is in it."""
+    S = 200
+    avail, leaves, u = _case(7 + k_explore, S, case)
+    kw = dict(k_exploit=k_exploit, k_explore=k_explore, T_round=60.0, alpha=1.0,
+              beta=1.0)
+    pad = 256 - S
+
+    def p(x, v=0.0):
+        return jnp.pad(jnp.asarray(x, jnp.float32), (0, pad), constant_values=v)
+
+    jidx, jlive = jkernel.select_topk(
+        p(leaves[0]), p(leaves[1], 1.0), p(leaves[2], 1.0), p(leaves[3]),
+        p(leaves[4]), p(avail), p(u), block_s=128, interpret=True, **kw)
+    idx, live = ref.select_topk(*_port(avail, leaves, u), **kw)
+    jlive = np.asarray(jlive)
+    np.testing.assert_array_equal(live.numpy(), jlive)
+    np.testing.assert_array_equal(idx.numpy(), np.where(jlive > 0, np.asarray(jidx), 0))
+    assert idx.dtype == live.dtype == torch.int32
+
+
+def test_non_unit_exponents_match_oracle():
+    avail, leaves, u = _case(3, 150, "random")
+    key = jax.random.PRNGKey(1)
+    kw = dict(T_round=60.0, alpha=2.0, beta=0.5)
+    got = ops.select_mask(torch.from_numpy(np.array(jax.random.uniform(key, (150,)))),
+                          K, torch.from_numpy(avail), 0.25,
+                          UtilityInputs(*map(torch.from_numpy, leaves)), **kw)
+    want = jref.select_ref(key, K, jnp.asarray(avail), 0.25, _jax_ui(leaves), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1, 0.5, 1.0])
+@pytest.mark.parametrize("k", [0, 3, 8, 40])
+def test_selection_functions_match_reference(eps, k):
+    """top_k_select / random_select / epsilon_greedy on plain scores,
+    with ties (scores rounded to a few values) and k beyond S."""
+    S = 33
+    rng = np.random.RandomState(k)
+    scores = np.round(rng.uniform(0, 4, S)).astype(np.float32)
+    avail = rng.uniform(0, 1, S) >= 0.25
+    key = jax.random.PRNGKey(k)
+    u = np.asarray(jax.random.uniform(key, (S,)))
+    ts, ta, tu = torch.from_numpy(scores), torch.from_numpy(avail), torch.tensor(u)
+    js, ja = jnp.asarray(scores), jnp.asarray(avail)
+    np.testing.assert_array_equal(sel.top_k_select(ts, k, ta).numpy(),
+                                  np.asarray(jsel.top_k_select(js, k, ja)))
+    np.testing.assert_array_equal(sel.random_select(tu, k, ta).numpy(),
+                                  np.asarray(jsel.random_select(key, k, ja)))
+    np.testing.assert_array_equal(sel.epsilon_greedy(tu, ts, k, ta, eps).numpy(),
+                                  np.asarray(jsel.epsilon_greedy(key, js, k, ja, eps)))
+    for kk in range(0, 9):
+        assert sel._explore_slots(eps, kk) == jsel._explore_slots(eps, kk)
+
+
+def test_wrapper_runs_plain_version_on_cpu_without_counting():
+    avail, leaves, u = _case(0, 50, "random")
+    before = ops.launches
+    idx, live = ops.select_topk(*_port(avail, leaves, u), k_exploit=4, k_explore=1,
+                                T_round=60.0, alpha=1.0, beta=1.0)
+    assert ops.launches == before and idx.shape == live.shape == (5,)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.select_topk(*(x.to("meta") if isinstance(x, torch.Tensor) else
+                          UtilityInputs(*(y.to("meta") for y in x))
+                          for x in _port(avail, leaves, u)),
+                        k_exploit=4, k_explore=1, T_round=60.0, alpha=1.0, beta=1.0)
