@@ -10,10 +10,12 @@ Phases, in order; any failure exits non-zero:
 3. rewafl_select on the card against its plain PyTorch version, bitwise
    (indices, live flags and masks), at S in {100, 1e5, 1e6}, K = 20,
    eps in {0, 0.25}: all available, ~30% unavailable, fewer than K
-   available, and a block of equal utilities;
-4. fedavg against its plain version: (20, 206,922) f32 rows with the
-   main path's padded stride, a ragged unaligned stack, and bf16;
-   f32 within atol 1e-5 (the sum order differs), bf16 within 0.05;
+   available, and a block of equal utilities; and at S in {100, 1e5}
+   with exponents (alpha, beta) other than 1;
+4. fedavg against its plain version: (20, 206,922) f32, contiguous as
+   the round keeps it and with rows padded to a multiple of 4 (the
+   kernel's vector path), a ragged unaligned stack, and bf16; f32 within
+   atol 1e-5 (the sum order differs), bf16 within 0.05;
 5. times of each kernel, its plain version and one library call: device
    time from CUDA events around a replayed CUDA graph of 10 calls
    (median of 25, after warm-up), and the kernel's time per call issued
@@ -21,13 +23,15 @@ Phases, in order; any failure exits non-zero:
 6. the main path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after; then a small run on the card
-   held against the same run on the CPU (plain versions, same draws);
+   held against the same run on the CPU (plain versions, same draws):
+   selections bitwise, losses and costs within rtol 1e-3;
 7. one JSON line of kernels, the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
-`--profile` adds, before the last lines, the device's busy share of 5
-main-path rounds and its 15 largest kernels by device time, from
-torch.profiler.
+`--profile` adds, before the last lines, the device time of 5 main-path
+rounds by kernel, from torch.profiler, and the device's busy share: that
+device time over the wall time of the same 5 rounds run without the
+profiler (which slows the host), and over the profiled wall time.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -166,6 +170,23 @@ def phase_select(dev) -> None:
                           f"kernel {idx.tolist()}/{live.tolist()} vs plain "
                           f"{ridx.tolist()}/{rlive.tolist()}")
                 n += 1
+    # PyTorch's tensor ** scalar special-cases some exponents (2 as x*x,
+    # 0.5 as sqrt); the kernel must follow it
+    for S in (100, 100_000):
+        for eps in (0.0, 0.25):
+            for alpha, beta in ((2.0, 0.5), (3.0, 1.7), (0.5, 2.0), (1.3, -0.5)):
+                avail, ui, rnd = select_inputs(S, "unavail30", 77 + S % 991, dev)
+                kx = _explore_slots(eps, MAIN_K)
+                kw = dict(k_exploit=MAIN_K - kx, k_explore=kx, T_round=60.0,
+                          alpha=alpha, beta=beta)
+                idx, live = ops.select_topk(avail, ui, rnd, **kw)
+                ridx, rlive = ref.select_topk(avail, ui, rnd, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(idx, ridx) and torch.equal(live, rlive),
+                      f"rewafl_select S={S} eps={eps} alpha={alpha} beta={beta}: "
+                      f"kernel {idx.tolist()}/{live.tolist()} vs plain "
+                      f"{ridx.tolist()}/{rlive.tolist()}")
+                n += 1
     print(f"rewafl_select: {n} cases bitwise equal to the plain version",
           flush=True)
 
@@ -198,26 +219,37 @@ def time_select(dev, S: int = MAIN_S) -> dict:
 FEDAVG_K, FEDAVG_P = 20, 206_922   # cnn@mnist at full width
 
 
-def fedavg_inputs(K: int, P: int, ld: int, dtype, seed: int, dev, offset: int = 0):
+def fedavg_inputs(K: int, P: int, layout: str, dtype, seed: int, dev):
+    """(K, P) stack and normalised (K,) weights. layout: "contiguous" (as
+    the round keeps it), "padded" (row stride rounded up to a multiple of
+    4: the kernel's vector path) or "unaligned" (rows of stride P + 2
+    starting one element in)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    buf = torch.randn(K, ld + offset, generator=g, device=dev).to(dtype)
+    vals = torch.randn(K, P, generator=g, device=dev).to(dtype)
     w = torch.rand(K, generator=g, device=dev)
-    return buf[:, offset:offset + P], w / w.sum()
+    if layout == "padded":
+        x = vals.new_empty(K, -(-P // 4) * 4)[:, :P]
+    elif layout == "contiguous":
+        x = torch.empty_like(vals)
+    else:
+        x = vals.new_empty(K, P + 2)[:, 1:P + 1]
+    x.copy_(vals)
+    return x, w / w.sum()
 
 
 def phase_fedavg(dev) -> float:
     from repro_torch.kernels.fedavg import ops, ref
     P = FEDAVG_P
-    cases = [  # (name, K, P, row stride, dtype, offset, atol)
-        ("main f32, padded rows", FEDAVG_K, P, -(-P // 4) * 4, torch.float32, 0, 1e-5),
-        ("f32 contiguous", FEDAVG_K, P, P, torch.float32, 0, 1e-5),
-        ("ragged unaligned f32", 7, 1001, 1002, torch.float32, 1, 1e-5),
-        ("bf16 contiguous", FEDAVG_K, P, P, torch.bfloat16, 0, 0.05),
-        ("bf16 padded rows", FEDAVG_K, P, -(-P // 4) * 4, torch.bfloat16, 0, 0.05),
+    cases = [  # (name, K, P, layout, dtype, atol)
+        ("main f32, contiguous", FEDAVG_K, P, "contiguous", torch.float32, 1e-5),
+        ("f32 padded rows", FEDAVG_K, P, "padded", torch.float32, 1e-5),
+        ("ragged unaligned f32", 7, 1001, "unaligned", torch.float32, 1e-5),
+        ("bf16 contiguous", FEDAVG_K, P, "contiguous", torch.bfloat16, 0.05),
+        ("bf16 padded rows", FEDAVG_K, P, "padded", torch.bfloat16, 0.05),
     ]
     main_err = None
-    for i, (name, K, PP, ld, dtype, off, atol) in enumerate(cases):
-        x, w = fedavg_inputs(K, PP, ld, dtype, 50 + i, dev, off)
+    for i, (name, K, PP, layout, dtype, atol) in enumerate(cases):
+        x, w = fedavg_inputs(K, PP, layout, dtype, 50 + i, dev)
         got = ops.weighted_aggregate(x, w)
         want = ref.weighted_aggregate(x, w)
         torch.cuda.synchronize()
@@ -235,10 +267,13 @@ def phase_fedavg(dev) -> float:
 def time_fedavg(dev) -> dict:
     from repro_torch.kernels.fedavg import ops, ref
     K, P = FEDAVG_K, FEDAVG_P
-    # the main path's layout: K rows of P with the stride padded to 4
-    x, w = fedavg_inputs(K, P, -(-P // 4) * 4, torch.float32, 99, dev)
+    # the round's contiguous stack: P = 206,922 is not a multiple of 4, so
+    # the kernel takes its scalar path; padded rows take the vector path
+    x, w = fedavg_inputs(K, P, "contiguous", torch.float32, 99, dev)
+    xp = fedavg_inputs(K, P, "padded", torch.float32, 99, dev)[0]
     b_ms, b_by = bound(n_bytes=(K * P + P + K) * 4, n_flops=2 * K * P)
     return dict(ms=time_ms(lambda: ops.weighted_aggregate(x, w)),
+                padded_ms=time_ms(lambda: ops.weighted_aggregate(xp, w)),
                 eager_ms=time_eager_ms(lambda: ops.weighted_aggregate(x, w)),
                 plain_ms=time_ms(lambda: ref.weighted_aggregate(x, w)),
                 library_ms=time_ms(lambda: torch.matmul(w, x)),
@@ -316,13 +351,17 @@ def phase_small_agreement(dev) -> None:
           "small run: selections differ between the card and the CPU")
     # cuDNN and the CPU sum convolutions in other orders; eight rounds of
     # SGD grow that last-bit difference to about 1e-4 relative
+    rel = {}
     for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
         check(np.allclose(a.history[k], b.history[k], rtol=1e-3, atol=1e-5),
               f"small run: {k} differs: {a.history[k]} vs {b.history[k]}")
+        d = np.abs(np.asarray(a.history[k], np.float64) - b.history[k])
+        rel[k] = float(np.max(d / np.maximum(np.abs(a.history[k]), 1e-30)))
     check(np.all(np.abs(a.acc_curve - b.acc_curve) <= 1 / 64 + 1e-9),
           f"small run: accuracy {a.acc_curve} vs {b.acc_curve}")
     print(f"small run: {R} rounds on the card agree with the CPU run "
-          f"(selections bitwise, losses and costs within rtol 1e-3)", flush=True)
+          f"(selections bitwise, losses and costs within rtol 1e-3; max "
+          f"relative difference {json.dumps(rel)})", flush=True)
 
 
 def phase_profile(dev) -> None:
@@ -334,6 +373,10 @@ def phase_profile(dev) -> None:
     kw = dict(small=False, n_clients=MAIN_S, n_select=MAIN_K, rounds=5,
               eval_every=5, device=dev)
     run_fl("cnn@mnist", "rewafl", **kw)   # warm-up
+    # the same 5 rounds without the profiler, which slows the host
+    plain_s = statistics.median(
+        float(run_fl("cnn@mnist", "rewafl", **kw).chunk_wall_s.sum())
+        for _ in range(3))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = run_fl("cnn@mnist", "rewafl", **kw)
         torch.cuda.synchronize()
@@ -345,9 +388,10 @@ def phase_profile(dev) -> None:
           and e.self_device_time_total > 0]
     ev.sort(key=lambda e: -e.self_device_time_total)
     busy_s = sum(e.self_device_time_total for e in ev) / 1e6
-    print(f"profile: 5 rounds, {rounds_s * 1e3:.1f} ms wall (eval included), "
-          f"device busy {busy_s * 1e3:.1f} ms ({100 * busy_s / rounds_s:.1f}%)",
-          flush=True)
+    print(f"profile: 5 rounds (eval included), device busy {busy_s * 1e3:.1f} "
+          f"ms; wall {plain_s * 1e3:.1f} ms without the profiler (median of "
+          f"3), busy {100 * busy_s / plain_s:.1f}%; wall {rounds_s * 1e3:.1f} "
+          f"ms under it, busy {100 * busy_s / rounds_s:.1f}%", flush=True)
     for e in ev[:15]:
         print(f"profile: {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d} calls  {e.key[:90]}", flush=True)
@@ -381,7 +425,9 @@ def main() -> None:
     times = {"rewafl_select": time_select(dev), "fedavg": time_fedavg(dev)}
     for k, v in list(times.items()) + [
             ("rewafl_select S=1e6", time_select(dev, 1_000_000))]:
-        print(f"time {k}: kernel {v['ms']:.5f} ms (issued from Python "
+        extra = (f", padded rows {v['padded_ms']:.5f} ms"
+                 if "padded_ms" in v else "")
+        print(f"time {k}: kernel {v['ms']:.5f} ms{extra} (issued from Python "
               f"{v['eager_ms']:.5f} ms), plain {v['plain_ms']:.5f} ms, library "
               f"{v['library_ms']:.5f} ms, bound {v['bound_ms']:.6f} ms "
               f"({v['bound_by']})", flush=True)

@@ -92,12 +92,10 @@ def _local_sgd(model: FLModel, global_flat: torch.Tensor, xk: torch.Tensor,
     """Masked local SGD of K clients from the global params, to H_max
     iterations; iterations ≥ H_k leave client k unchanged.
 
-    Returns the K client parameter sets as one (K, P) buffer (rows padded
-    to a multiple of 4 elements so the FedAvg kernel can use vector
-    loads), updated in place through per-leaf (K, ...) views."""
+    Returns the K client parameter sets as one contiguous (K, P) buffer,
+    updated in place through per-leaf (K, ...) views."""
     K, P = xk.shape[0], global_flat.shape[0]
-    buf = global_flat.new_empty(K, -(-P // 4) * 4)
-    client = buf[:, :P]
+    client = global_flat.new_empty(K, P)
     client.copy_(global_flat.expand(K, P))
     views = model.layout.views(client)
     grad_fn = vmap(grad(lambda p, x, y: model.loss(p, {"x": x, "y": y})))

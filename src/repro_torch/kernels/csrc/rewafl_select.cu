@@ -18,8 +18,8 @@
 // Design. The TPU grid runs in order and carries the running candidates
 // in VMEM; Hopper's blocks run in parallel, so this is two stages:
 //   1. One block per tile of TILE devices computes the utility (op for op
-//      as `_tile_utility`: (stat*lat)*eng, powf only for an exponent != 1,
-//      IEEE division) and keys each device by a 64-bit key whose order is
+//      as `_tile_utility`: (stat*lat)*eng, the exponent's power as
+//      PyTorch computes it (`pow_s`), IEEE division) and keys each device by a 64-bit key whose order is
 //      (value desc, index asc): the high word is the value's order-
 //      preserving bits, inverted, the low word the index. The block then
 //      writes its k smallest keys — its local top-k — to a scratch array
@@ -73,8 +73,22 @@ __device__ __forceinline__ float max_keep_nan(float x, float lo) {
   return x < lo ? lo : x;
 }
 
+// base ** p as PyTorch's tensor ** scalar computes it on the card, so the
+// plain version's utilities match bitwise for every exponent: 1 leaves the
+// base as it is, 0 gives 1, and 0.5, -0.5, -1, 2, 3 and -2 are special
+// cases (sqrt, rsqrt, reciprocal, products) rather than powf, which is not
+// correctly rounded. 1/(b*b) in float equals PyTorch's double quotient
+// rounded to float: double rounding of a quotient is exact at 53 bits.
 __device__ __forceinline__ float pow_s(float b, float p) {
-  return p == 1.0f ? b : powf(b, p);
+  if (p == 1.0f) return b;
+  if (p == 0.0f) return 1.0f;
+  if (p == 0.5f) return sqrtf(b);
+  if (p == -0.5f) return rsqrtf(b);
+  if (p == -1.0f) return 1.0f / b;
+  if (p == 2.0f) return b * b;
+  if (p == 3.0f) return b * b * b;
+  if (p == -2.0f) return 1.0f / (b * b);
+  return powf(b, p);
 }
 
 __device__ __forceinline__ float utility(float stat, float t, float e,

@@ -16,7 +16,7 @@ import dataclasses
 import json
 import logging
 import time
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -24,7 +24,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.core.methods import METHODS
 from repro_torch.core.policy import PolicyCfg
-from repro_torch.core.round import FLConfig, RoundNoise, make_eval_fn
+from repro_torch.core.round import FLConfig, make_eval_fn
 from repro_torch.core.state import FleetState
 from repro_torch.data.partition import client_datasets
 from repro_torch.data.synthetic import make_image_dataset
@@ -97,7 +97,6 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
            eval_every: int = 5, verbose: bool = False, chunk_size: int = 8,
            scenario: str = "static-paper", aggregation: str = "sync",
            telemetry: str = "dense",
-           noise_fn: Optional[Callable[[int], RoundNoise]] = None,
            device="cuda") -> RunResult:
     """Run one FL campaign on `device` (a CUDA device by default).
 
@@ -132,7 +131,7 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         params=model.init(torch.Generator(device=dev).manual_seed(seed + 2)),
         chunk_size=max(1, min(chunk_size, eval_every)),
         eval_fn=make_eval_fn(model, test["x"], test["y"]),
-        target_acc=target_acc, noise_fn=noise_fn, device=dev)
+        target_acc=target_acc, device=dev)
     h = res.history
     if verbose:
         ends = np.cumsum(res.chunk_rounds) - 1

@@ -61,6 +61,23 @@ def test_rewafl_select_matches_plain_bitwise(dev, S, k_explore, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("alpha,beta", [(2.0, 0.5), (3.0, -0.5), (-1.0, -2.0),
+                                        (0.0, 1.7), (0.5, 2.0), (1.3, 3.0)])
+@pytest.mark.parametrize("k_explore", [0, 5])
+def test_rewafl_select_non_unit_exponents_match_plain_bitwise(dev, alpha, beta,
+                                                             k_explore):
+    """PyTorch's tensor ** scalar special-cases 0, 0.5, -0.5, -1, 2, 3 and
+    -2; the kernel must compute each power as it does."""
+    avail, ui, rnd = _select_case(5000, "random", 20, dev)
+    kw = dict(k_exploit=20 - k_explore, k_explore=k_explore, T_round=60.0,
+              alpha=alpha, beta=beta)
+    idx, live = select_ops.select_topk(avail, ui, rnd, **kw)
+    ridx, rlive = select_ref.select_topk(avail, ui, rnd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(live, rlive)
+
+
+@pytest.mark.cuda
 def test_rewafl_select_rejects_k_above_its_limit(dev):
     avail, ui, rnd = _select_case(1000, "random", 20, dev)
     with pytest.raises(ValueError, match="outside"):
