@@ -16,22 +16,38 @@ Phases, in order; any failure exits non-zero:
    the round keeps it and with rows padded to a multiple of 4 (the
    kernel's vector path), a ragged unaligned stack, and bf16; f32 within
    atol 1e-5 (the sum order differs), bf16 within 0.05;
-5. times of each kernel, its plain version and one library call: device
+5. flash_attention against its plain version: llama heads (H 24, n_kv 8,
+   hd 128) causal at S in {17, 128, 2048}, gemma2 heads (H 32, n_kv 16)
+   with window 64 and softcap 50 and as a global layer, granite's MQA,
+   non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key; f32
+   within atol 1e-5 (the sum order differs), bf16 within one bf16 step
+   (rtol 2**-7, atol 1e-5);
+6. times of each kernel, its plain version and one library call: device
    time from CUDA events around a replayed CUDA graph of 10 calls
    (median of 25, after warm-up), and the kernel's time per call issued
    from Python; beside the least time the card could take for the work;
-6. the main path: `run_fl("cnn@mnist", "rewafl", small=False,
+7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after; then a small run on the card
    held against the same run on the CPU (plain versions, same draws):
    selections bitwise, losses and costs within rtol 1e-3;
-7. one JSON line of kernels, the card's name and power limit, and last
+8. the serving path: `serve("llama3.2-3b", batch=4, prompt_len=2048,
+   tokens=32)` at full width (28 layers, d 3072, bf16 weights drawn on
+   the card), after one warm-up call, with every kernel's launch count
+   read just after (flash_attention: one per layer); then reduced
+   llama3.2-3b and gemma2-27b served on the card and on the CPU from
+   the same weights: greedy ids equal, last logits within 5e-4 of their
+   scale;
+9. one JSON line of kernels, the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
-`--profile` adds, before the last lines, the device time of 5 main-path
+`--profile` adds, before the last lines, the device time of 5 FL-path
 rounds by kernel, from torch.profiler, and the device's busy share: that
 device time over the wall time of the same 5 rounds run without the
-profiler (which slows the host), and over the profiled wall time.
+profiler (which slows the host), and over the profiled wall time; then
+the device time by kernel of one full-width prefill, and of the same
+prefill with 8 decode steps, with the device's busy share of the
+serving run's unprofiled prefill and decode times.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -52,9 +68,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound: HBM3 rate,
-# and fp32 outside the tensor cores (both kernels do f32 FMAs)
+# fp32 outside the tensor cores (rewafl_select and fedavg do f32 FMAs),
+# and bf16 on the tensor cores (the least time for bf16 attention)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 MAIN_S, MAIN_K, MAIN_ROUNDS = 100, 20, 10
 
@@ -114,9 +132,9 @@ def time_eager_ms(fn, reps: int = 25, inner: int = 10) -> float:
     return _median_ms(run, reps, inner)
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, flop_per_s: float = F32_FLOP_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOP_PER_S * 1e3
+    t_ops = n_flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -280,6 +298,98 @@ def time_fedavg(dev) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+# ---------------------------------------------------------- flash_attention
+
+# (name, B, Sq, Sk, H, n_kv, hd, causal, window, softcap, dtype)
+FLASH_CASES = [
+    ("llama causal S=17 f32", 2, 17, 17, 24, 8, 128, True, None, None, torch.float32),
+    ("llama causal S=17 bf16", 2, 17, 17, 24, 8, 128, True, None, None, torch.bfloat16),
+    ("llama causal S=128 f32", 2, 128, 128, 24, 8, 128, True, None, None, torch.float32),
+    ("llama causal S=128 bf16", 2, 128, 128, 24, 8, 128, True, None, None, torch.bfloat16),
+    ("llama causal S=2048 f32", 1, 2048, 2048, 24, 8, 128, True, None, None, torch.float32),
+    ("llama causal S=2048 bf16 (main path)", 4, 2048, 2048, 24, 8, 128, True, None, None,
+     torch.bfloat16),
+    ("gemma2 window 64 softcap 50 S=512 f32", 1, 512, 512, 32, 16, 128, True, 64, 50.0,
+     torch.float32),
+    ("gemma2 window 64 softcap 50 S=512 bf16", 1, 512, 512, 32, 16, 128, True, 64, 50.0,
+     torch.bfloat16),
+    ("gemma2 global layer (window 2**30) softcap 50 S=512 bf16", 1, 512, 512, 32, 16, 128,
+     True, 2**30, 50.0, torch.bfloat16),
+    ("granite MQA S=300 bf16", 2, 300, 300, 48, 1, 128, True, None, None, torch.bfloat16),
+    ("non-causal Sq=100 Sk=257 f32", 2, 100, 257, 8, 2, 128, False, None, None, torch.float32),
+    ("causal Sq=200 > Sk=70, window 8, hd 64 f32", 1, 200, 70, 4, 2, 64, True, 8, None,
+     torch.float32),
+    ("reduced gemma2 hd 64 window 8 softcap 50 S=40 f32", 2, 40, 40, 4, 4, 64, True, 8, 50.0,
+     torch.float32),
+    ("every row masked (causal, window 0) S=130 f32", 1, 130, 130, 4, 2, 64, True, 0,
+     None, torch.float32),
+    ("non-causal window 0 (the last row sees no key) S=130 f32", 1, 130, 130, 4, 2, 64,
+     False, 0, None, torch.float32),
+]
+MAIN_FLASH = dict(B=4, S=2048, H=24, n_kv=8, hd=128)   # llama3.2-3b prefill
+FLASH_F32_ATOL = 1e-5        # the sum order differs
+FLASH_BF16_RTOL = 2.0 ** -7  # both round one f32 result to bf16: one step apart
+
+
+def flash_inputs(B, Sq, Sk, H, n_kv, hd, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).to(dtype),
+            torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).to(dtype))
+
+
+def phase_flash(dev) -> float:
+    """The kernel against its plain version in every case; f32 within atol
+    1e-5, bf16 within one bf16 step (rtol 2**-7, atol 1e-5). Returns the
+    main-path case's max |kernel - plain|."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    main_err = None
+    for i, (name, B, Sq, Sk, H, n_kv, hd, causal, window, softcap, dt) in enumerate(
+            FLASH_CASES):
+        q, k, v = flash_inputs(B, Sq, Sk, H, n_kv, hd, dt, 300 + i, dev)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+        want = ref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == q.shape,
+              f"flash {name}: got {got.dtype} {tuple(got.shape)}")
+        d = (got.float() - want.float()).abs()
+        err = d.max().item()
+        if dt == torch.float32:
+            ok, tol = err <= FLASH_F32_ATOL, f"atol {FLASH_F32_ATOL}"
+        else:
+            ok = bool((d <= FLASH_BF16_RTOL * want.float().abs() + 1e-5).all())
+            tol = "rtol 2**-7, atol 1e-5"
+        check(ok and bool(torch.isfinite(got).all()),
+              f"flash {name}: max |kernel - plain| = {err} ({tol})")
+        print(f"flash_attention {name}: max_abs_err={err:.3g} ({tol})", flush=True)
+        if "main path" in name:
+            main_err = err
+    return main_err
+
+
+def time_flash(dev) -> dict:
+    """Times at the main path's call: one llama3.2-3b prefill layer, B 4,
+    S 2048, bf16, causal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, n_kv, hd = (MAIN_FLASH[k] for k in ("B", "S", "H", "n_kv", "hd"))
+    q, k, v = flash_inputs(B, S, S, H, n_kv, hd, torch.bfloat16, 7, dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # views, (B, heads, S, hd)
+    # each input read once, the output written once; 4·hd flops for each
+    # (query, key) pair the causal mask keeps (q·k and p·v)
+    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * n_kv * hd)
+    n_flops = 4 * B * H * hd * (S * (S + 1) // 2)
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOP_PER_S)
+    kernel = lambda: ops.flash_attention(q, k, v, causal=True)   # noqa: E731
+    return dict(ms=time_ms(kernel), eager_ms=time_eager_ms(kernel),
+                plain_ms=time_ms(lambda: ref.attention(q, k, v, causal=True),
+                                 reps=5, inner=2),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # ---------------------------------------------------------------- main path
 
 def phase_main_path(dev):
@@ -364,6 +474,134 @@ def phase_small_agreement(dev) -> None:
           f"relative difference {json.dumps(rel)})", flush=True)
 
 
+# ------------------------------------------------------------- serving path
+
+SERVE_ARCH, SERVE_B, SERVE_S, SERVE_TOKENS = "llama3.2-3b", 4, 2048, 32
+
+
+def serve_params(dev):
+    """Full-width llama3.2-3b weights drawn on the card from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import get_model_api
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.time()
+    with torch.inference_mode():
+        params = get_model_api(cfg).init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    print(f"serve: {SERVE_ARCH} weights ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_dtype}) drawn on the card in {time.time() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def phase_serve(dev, cfg, params):
+    """The serving path at full width: prefill B 4 x S 2048, then 32 greedy
+    decode steps, with every kernel's launch count read just after."""
+    from repro_torch.configs import param_count
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rewafl_select import ops as select_ops
+    from repro_torch.launch.serve import serve, summary
+    kw = dict(batch=SERVE_B, prompt_len=SERVE_S, params=params, device=dev)
+    serve(SERVE_ARCH, tokens=2, seed=1, **kw)   # warm-up: cuBLAS picks its kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.launches = fedavg_ops.launches = select_ops.launches = 0
+    res = serve(SERVE_ARCH, tokens=SERVE_TOKENS, seed=0, **kw)
+    counts = {"flash_attention": flash_ops.launches, "fedavg": fedavg_ops.launches,
+              "rewafl_select": select_ops.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts["flash_attention"] == cfg.n_layers == res.flash_launches,
+          f"flash_attention launched {counts['flash_attention']} times in one "
+          f"prefill of {cfg.n_layers} layers")
+    check(counts["fedavg"] == counts["rewafl_select"] == 0,
+          f"the serving path launched FL kernels: {counts}")
+    check(tuple(res.ids.shape) == (SERVE_B, SERVE_TOKENS + 1),
+          f"generated ids of shape {tuple(res.ids.shape)}")
+    check(int(res.ids.min()) >= 0 and int(res.ids.max()) < cfg.vocab,
+          "generated ids outside the vocabulary")
+    check(tuple(res.last_logits.shape) == (SERVE_B, cfg.vocab)
+          and bool(torch.isfinite(res.last_logits).all()),
+          "last logits not finite or of the wrong shape")
+    check(res.n_params == param_count(cfg), "parameter count")
+    out = summary(res)
+    out.update(peak_memory_gb=peak_gb, device=torch.cuda.get_device_name(0))
+    print(json.dumps(out), flush=True)
+    print(f"serve: {SERVE_ARCH} {res.n_params / 1e9:.3f} B params, prefill "
+          f"{SERVE_B} x {SERVE_S} in {out['prefill_ms']:.1f} ms, decode "
+          f"{out['decode_ms_per_token']:.2f} ms/token ({out['decode_tok_per_s']:.1f} "
+          f"tok/s over {SERVE_B} requests), {SERVE_TOKENS} tokens decoded; "
+          f"launches {counts}; peak {peak_gb:.2f} GB", flush=True)
+    return counts, out
+
+
+def phase_serve_agreement(dev) -> None:
+    """Reduced llama3.2-3b and gemma2-27b (hd 64, f32; gemma2 with windows
+    and softcaps) served on the card and on the CPU from the same weights:
+    greedy ids equal, last logits within 5e-4 of their scale (bf16 caches:
+    the CPU parity test measures up to 4.1e-5 against the reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import get_model_api
+    for arch in ("llama3.2-3b", "gemma2-27b"):
+        cfg = get_config(arch, reduced=True)
+        params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
+        kw = dict(reduced=True, batch=2, prompt_len=40, tokens=8, seed=5)
+        cpu = serve(arch, device="cpu", params=params, **kw)
+        card = serve(arch, device=dev, params=_to(params, dev), **kw)
+        check(card.flash_launches == cfg.n_layers,
+              f"{arch} reduced: {card.flash_launches} flash launches on the card")
+        check(torch.equal(cpu.ids, card.ids),
+              f"{arch} reduced: greedy ids differ: {cpu.ids.tolist()} vs {card.ids.tolist()}")
+        scale = cpu.last_logits.abs().max().item()
+        err = (cpu.last_logits - card.last_logits).abs().max().item()
+        check(err <= 5e-4 * scale, f"{arch} reduced: last logits differ by {err} "
+                                   f"(scale {scale})")
+        print(f"serve agreement {arch} reduced: ids equal over {kw['tokens']} steps, "
+              f"last logits within {err / scale:.3g} of scale {scale:.3g}", flush=True)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def _device_kernels(prof):
+    """Device-side kernel events, largest first, and their summed time (s).
+    Only kernels: an aten op's device time repeats the time of the kernels
+    it launched."""
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    ev.sort(key=lambda e: -e.self_device_time_total)
+    return ev, sum(e.self_device_time_total for e in ev) / 1e6
+
+
+def phase_profile_serve(dev, params, main: dict) -> None:
+    """`--profile`: device time by kernel of one full-width prefill, and of
+    the same prefill followed by 8 decode steps; the decode's device time
+    per step is the difference over 8. Busy shares are taken against the
+    unprofiled wall times of the main serving run (`main`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import serve
+    kw = dict(batch=SERVE_B, prompt_len=SERVE_S, params=params, device=dev)
+    busy, top = {}, {}
+    for n in (0, 8):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve(SERVE_ARCH, tokens=n, **kw)
+        top[n], busy[n] = _device_kernels(prof)
+    step_s = (busy[8] - busy[0]) / 8
+    print(f"profile serve: prefill device busy {busy[0] * 1e3:.1f} ms of "
+          f"{main['prefill_ms']:.1f} ms unprofiled wall ({100 * busy[0] * 1e3 / main['prefill_ms']:.1f}%); "
+          f"decode device busy {step_s * 1e3:.2f} ms/step of "
+          f"{main['decode_ms_per_token']:.2f} ms unprofiled wall "
+          f"({100 * step_s * 1e3 / main['decode_ms_per_token']:.1f}%)", flush=True)
+    for n, label in ((0, "prefill"), (8, "prefill+8 decode")):
+        for e in top[n][:10]:
+            print(f"profile serve {label}: {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d} calls  {e.key[:80]}", flush=True)
+
+
 def phase_profile(dev) -> None:
     """`--profile`: device time by kernel over 5 main-path rounds, from
     torch.profiler, and the device's busy share of the rounds' wall time."""
@@ -381,13 +619,7 @@ def phase_profile(dev) -> None:
         res = run_fl("cnn@mnist", "rewafl", **kw)
         torch.cuda.synchronize()
     rounds_s = float(res.chunk_wall_s.sum())
-    # device-side kernel events only: an aten op's device time repeats
-    # the time of the kernels it launched
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.self_device_time_total > 0]
-    ev.sort(key=lambda e: -e.self_device_time_total)
-    busy_s = sum(e.self_device_time_total for e in ev) / 1e6
+    ev, busy_s = _device_kernels(prof)
     print(f"profile: 5 rounds (eval included), device busy {busy_s * 1e3:.1f} "
           f"ms; wall {plain_s * 1e3:.1f} ms without the profiler (median of "
           f"3), busy {100 * busy_s / plain_s:.1f}%; wall {rounds_s * 1e3:.1f} "
@@ -422,7 +654,9 @@ def main() -> None:
 
     phase_select(dev)   # bitwise: any difference has failed the run
     fed_err = phase_fedavg(dev)
-    times = {"rewafl_select": time_select(dev), "fedavg": time_fedavg(dev)}
+    flash_err = phase_flash(dev)
+    times = {"rewafl_select": time_select(dev), "fedavg": time_fedavg(dev),
+             "flash_attention": time_flash(dev)}
     for k, v in list(times.items()) + [
             ("rewafl_select S=1e6", time_select(dev, 1_000_000))]:
         extra = (f", padded rows {v['padded_ms']:.5f} ms"
@@ -432,10 +666,16 @@ def main() -> None:
               f"{v['library_ms']:.5f} ms, bound {v['bound_ms']:.6f} ms "
               f"({v['bound_by']})", flush=True)
 
-    counts = phase_main_path(dev)
+    counts = phase_main_path(dev)       # the FL path: rewafl_select, fedavg
     phase_small_agreement(dev)
+    cfg, params = serve_params(dev)
+    serve_counts, serve_out = phase_serve(dev, cfg, params)
+    counts["flash_attention"] = serve_counts["flash_attention"]
+    phase_serve_agreement(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(dev)
+        phase_profile_serve(dev, params, serve_out)
+    del params
 
     meta = {
         "rewafl_select": ("src/repro_torch/kernels/csrc/rewafl_select.cu",
@@ -443,6 +683,9 @@ def main() -> None:
                           0.0, "bitwise"),
         "fedavg": ("src/repro_torch/kernels/csrc/fedavg.cu",
                    "src/repro/kernels/fedavg/fedavg.py:30", fed_err, "atol 1e-5"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/flash_attention.py:77",
+                            flash_err, "bf16 rtol 2**-7 (f32 atol 1e-5)"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=counts[k], max_abs_err=err, **times[k], check=chk)

@@ -9,6 +9,9 @@ place both packages meet.
 
 Covered so far: the static-paper, sync, dense-telemetry REWAFL path,
 from dataset and fleet construction through the chunked round driver and
-`launch.fl_run.run_fl`. The two TPU kernels on that path are hand-written
-CUDA C++ for Hopper (`kernels/csrc/`).
+`launch.fl_run.run_fl`; and dense-LLM serving (`configs`, `nn/attention`,
+`nn/transformer`, `models/lm`, `models/api`, `launch.serve.serve`):
+prefill and greedy decode for the dense and vlm families. The three TPU
+kernels on those paths are hand-written CUDA C++ for Hopper
+(`kernels/csrc/`).
 """

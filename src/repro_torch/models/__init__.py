@@ -1,1 +1,2 @@
-"""The paper's FL models behind the `FLModel` API."""
+"""The paper's FL models behind the `FLModel` API, and the decoder LLMs
+behind the `ModelAPI` (`api.get_model_api`)."""

@@ -1,1 +1,2 @@
-"""Layers the FL models need, as plain functions and small modules."""
+"""Layers, attention and transformer stacks, as plain functions over
+nested dicts of tensors (and small modules for the FL models)."""

@@ -1,15 +1,17 @@
-"""The layers the FL CNN needs, in the JAX package's parameter layout.
+"""The layers the FL CNN and the dense LLMs need, in the JAX package's
+parameter layout.
 
 Parameters keep the reference's layout at every interface — dense
-weights (d_in, d_out), conv weights HWIO, activations NHWC — so a
-parameter tree moves between the two packages leaf for leaf. The
-convolutions and matmuls themselves are plain `torch.nn.functional`
-calls, as the reference leaves them to XLA.
+weights (d_in, d_out), conv weights HWIO, activations NHWC, embedding
+tables (vocab, d) — so a parameter tree moves between the two packages
+leaf for leaf. The convolutions and matmuls themselves are plain
+`torch.nn.functional` calls, as the reference leaves them to XLA. Norms
+and soft-caps compute in fp32 and cast back, as the reference does.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,17 +20,70 @@ from torch import nn
 Params = Dict[str, torch.Tensor]
 
 
-def normal_init(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+def normal_init(gen: torch.Generator, shape, scale: float,
+                dtype=torch.float32) -> torch.Tensor:
+    """N(0, scale²) drawn in fp32, then cast to `dtype`."""
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> Params:
-    return {"w": normal_init(gen, (d_in, d_out), 1.0 / math.sqrt(max(d_in, 1))),
-            "b": torch.zeros((d_out,), device=gen.device)}
+def fan_in_init(gen: torch.Generator, shape, dtype=torch.float32,
+                fan_axis: int = -2) -> torch.Tensor:
+    fan_in = shape[fan_axis] if len(shape) >= 2 else shape[0]
+    return normal_init(gen, shape, 1.0 / math.sqrt(max(fan_in, 1)), dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = True,
+               dtype=torch.float32, scale: Optional[float] = None) -> Params:
+    w = (fan_in_init(gen, (d_in, d_out), dtype) if scale is None
+         else normal_init(gen, (d_in, d_out), scale, dtype))
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
 
 
 def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"] + params["b"]
+    y = x @ params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
+def embedding_init(gen: torch.Generator, vocab: int, d: int, *,
+                   dtype=torch.float32, scale: Optional[float] = None) -> Params:
+    return {"table": normal_init(gen, (vocab, d), 1.0 if scale is None else scale,
+                                 dtype)}
+
+
+def embedding(params: Params, ids: torch.Tensor) -> torch.Tensor:
+    return params["table"][ids]
+
+
+def rmsnorm_init(gen: torch.Generator, d: int, dtype=torch.float32) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=gen.device)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor, *, eps: float = 1e-6,
+            scale_plus_one: bool = False) -> torch.Tensor:
+    """RMS norm in fp32, cast back to x's dtype; gemma-style (1 + w)
+    scale with `scale_plus_one`."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    s = params["scale"].float()
+    if scale_plus_one:
+        s = 1.0 + s
+    return (y * s).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 logit soft-capping cap·tanh(x / cap), in fp32."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
 
 
 def conv2d_init(gen: torch.Generator, c_in: int, c_out: int, k: int) -> Params:

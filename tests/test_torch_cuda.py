@@ -5,7 +5,9 @@ for sm_90a, built by nvcc at first use). This file imports neither JAX
 nor the JAX package: the plain versions, which the CPU parity tests hold
 against the reference, are the oracle here. `rewafl_select` must match
 bitwise; `fedavg` within atol 1e-5 in f32 (another sum order) and 0.05
-in bf16.
+in bf16; `flash_attention` within atol 1e-5 in f32 (another sum order)
+and one bf16 step in bf16 (rtol 2**-7, atol 1e-5: both round one f32
+result).
 """
 import numpy as np
 import pytest
@@ -14,6 +16,8 @@ import torch
 from repro_torch.core.utility import UtilityInputs
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.fedavg import ref as fedavg_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rewafl_select import ops as select_ops
 from repro_torch.kernels.rewafl_select import ref as select_ref
 
@@ -103,3 +107,70 @@ def test_fedavg_matches_plain(dev, K, P, ld, offset, dtype):
     assert fedavg_ops.launches == before + 1 and got.dtype == dtype
     atol = 1e-5 if dtype == torch.float32 else 0.05
     assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+# B, Sq, Sk, H, n_kv, hd, causal, window, softcap
+FLASH_CASES = [
+    (2, 17, 17, 24, 8, 128, True, None, None),        # llama heads, ragged S
+    (1, 128, 128, 24, 8, 128, True, None, None),
+    (1, 512, 512, 24, 8, 128, True, None, None),
+    (1, 512, 512, 32, 16, 128, True, 64, 50.0),       # gemma2 local layer
+    (1, 300, 300, 32, 16, 128, True, 2**30, 50.0),    # gemma2 global layer
+    (2, 300, 300, 48, 1, 128, True, None, None),      # granite MQA
+    (2, 100, 257, 8, 2, 128, False, None, None),      # non-causal, Sq != Sk
+    (1, 200, 70, 4, 2, 64, True, 8, None),            # Sq > Sk, windowed
+    (2, 40, 40, 4, 4, 64, True, 8, 50.0),             # reduced gemma2
+    (1, 130, 130, 4, 2, 64, True, 0, None),           # every row masked
+    (1, 130, 130, 4, 2, 64, False, 0, None),          # the last row sees no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,n_kv,hd,causal,window,softcap", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(dev, B, Sq, Sk, H, n_kv, hd, causal,
+                                       window, softcap, dtype):
+    g = torch.Generator(device=dev).manual_seed(Sq + Sk + H)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).to(dtype)
+    kw = dict(causal=causal, window=window)
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, softcap=softcap, **kw)
+    want = flash_ref.attention(q, k, v, logit_softcap=softcap, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    d = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert d.max().item() <= 1e-5
+    else:
+        assert bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(1, 8, 4, 32, device=dev)
+    with pytest.raises(ValueError, match="head width"):
+        flash_ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    q = torch.zeros(1, 8, 4, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 8, 6, 64, device=dev)
+    with pytest.raises(ValueError, match="KV heads"):
+        flash_ops.flash_attention(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                                  q.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma2-27b", "granite-34b"])
+def test_prefill_launches_the_kernel_once_per_layer(dev, arch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    cfg = get_config(arch, reduced=True)
+    before = flash_ops.launches
+    res = serve(arch, reduced=True, batch=2, prompt_len=24, tokens=3, device=dev)
+    assert res.flash_launches == flash_ops.launches - before == cfg.n_layers
+    assert res.ids.shape == (2, 4) and torch.isfinite(res.last_logits).all()
