@@ -38,7 +38,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
+def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
     global launches
     if q.dtype not in _ENTRY:
         raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
@@ -67,7 +67,7 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
     out = torch.empty_like(q)
     err = getattr(_lib(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H,
-        n_kv, hd, scale if scale is not None else 1.0 / math.sqrt(hd),
+        n_kv, hd, 1.0 / math.sqrt(hd),
         int(causal), int(window is not None), 0 if window is None else int(window),
         0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -79,15 +79,14 @@ def _launch(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, n_kv, hd) -> (B, Sq, H, hd) in q's
-    dtype (f32 or bf16). Mask by position difference d = i − j: causal
-    keeps d ≥ 0, `window` keeps d < window; `softcap` caps the scaled
-    scores at c·tanh(s / c) before masking; `scale` defaults to 1/√hd."""
+    dtype (f32 or bf16). Scores are scaled by 1/√hd. Mask by position
+    difference d = i − j: causal keeps d ≥ 0, `window` keeps d < window;
+    `softcap` caps the scaled scores at c·tanh(s / c) before masking."""
     if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window,
-                             logit_softcap=softcap, scale=scale)
+                             logit_softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal, window, softcap, scale)
+    return _launch(q, k, v, causal, window, softcap)

@@ -4,8 +4,9 @@ CUDA device by default. The port of `examples/serve_llm.py`.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch llama3.2-3b --batch 4 --prompt-len 2048 --tokens 32
-(`--reduced` serves the CPU-sized variant; `--device cpu` runs on the
-CPU; without a GPU the default raises.) Weights are random, drawn from
+(`--reduced` serves the CPU-sized variant, in f32 unless
+`--param-dtype bfloat16`; `--device cpu` runs on the CPU; without a GPU
+the default raises.) Weights are random, drawn from
 `--seed`; so is the prompt.
 """
 from __future__ import annotations
@@ -57,13 +58,17 @@ def _sync(dev: torch.device) -> None:
 
 def serve(arch: str, *, reduced: bool = False, batch: int = 4,
           prompt_len: int = 16, tokens: int = 16, seed: int = 0,
-          device="cuda", params=None) -> ServeResult:
+          device="cuda", params=None,
+          param_dtype: Optional[str] = None) -> ServeResult:
     """Prefill a seeded prompt of `batch` × `prompt_len` tokens, then
     decode `tokens` greedy steps on the prefill's cache. `params` (the
     reference's tree, on `device`) replaces the random weights drawn from
-    `seed`."""
+    `seed`; `param_dtype` ("float32" or "bfloat16") replaces the config's
+    weight dtype."""
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     api = get_model_api(cfg)
     with torch.inference_mode():
         if params is None:
@@ -111,11 +116,13 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true",
                     help="the CPU-sized variant (2 layers, d_model <= 256)")
+    ap.add_argument("--param-dtype", choices=("float32", "bfloat16"),
+                    help="the weights' dtype (default: the config's)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     res = serve(args.arch, reduced=args.reduced, batch=args.batch,
                 prompt_len=args.prompt_len, tokens=args.tokens, seed=args.seed,
-                device=args.device)
+                device=args.device, param_dtype=args.param_dtype)
     print(f"served {res.arch}: prefill({res.prompt_len} tokens x {res.batch} "
           f"reqs) {res.prefill_s:.2f}s; decoded {res.tokens} tokens/request "
           f"in {res.decode_s:.2f}s")

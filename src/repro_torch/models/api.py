@@ -15,7 +15,7 @@ class ModelAPI:
     loss_fn: Callable            # (params, batch, cfg) -> (loss, metrics)
     prefill: Callable            # (params, batch, cfg) -> (logits, state)
     decode_step: Callable        # (params, batch, state, cfg) -> (logits, state)
-    init_decode_state: Callable  # (cfg, batch, kv_len) -> state
+    init_decode_state: Callable  # (cfg, batch, kv_len, *, device) -> state
 
 
 _NOT_PORTED = {

@@ -6,7 +6,7 @@ its sharding argument:
   init_params(gen, cfg)                   -> params (nested dict)
   prefill(params, batch, cfg)             -> (last_logits, state)
   decode_step(params, batch, state, cfg)  -> (logits, state)
-  init_decode_state(cfg, batch, kv_len)   -> state
+  init_decode_state(cfg, batch, kv_len, *, device) -> state
 
 Decode-state convention: a "KV cache of seq_len" holds seq_len−1 prior
 tokens; decode_step writes token seq_len−1 (0-based) and attends the full
@@ -86,22 +86,20 @@ def dense_prefill(params, batch, cfg: ArchCfg):
 
 
 def dense_init_decode_state(cfg: ArchCfg, batch: int, kv_len: int, *,
-                            force_local: bool = False, device="cpu"):
-    windows = tf.layer_windows(cfg, cfg.n_layers, force_local=force_local)
+                            device="cuda"):
+    """Empty stacked ring caches of kv_len slots in the model's dtype, with
+    kv_len − 1 prior tokens, on `device` (the card unless asked)."""
     return tf.init_stack_cache(cfg, cfg.n_layers, batch, kv_len,
-                               windows=windows, length=kv_len - 1,
-                               dtype=_dtype(cfg), force_local=force_local,
-                               device=device)
+                               length=kv_len - 1, dtype=_dtype(cfg),
+                               device=resolve_device(device))
 
 
-def dense_decode_step(params, batch, state, cfg: ArchCfg, *,
-                      force_local: bool = False):
+def dense_decode_step(params, batch, state, cfg: ArchCfg):
     """One greedy-decode step: batch["tokens"] (B, 1) → logits (B, 1, V);
     the state's caches are written in place."""
     x = _embed(params, batch["tokens"], cfg)
-    windows = tf.layer_windows(cfg, cfg.n_layers, force_local=force_local)
     x, state = tf.stack_decode(params["stack"], x, state, cfg, use_moe=False,
-                               windows=windows)
+                               windows=tf.layer_windows(cfg, cfg.n_layers))
     x = layers.rmsnorm(params["final_ln"], x, scale_plus_one=cfg.embed_scale)
     return _final_logits(x, params, cfg), state
 

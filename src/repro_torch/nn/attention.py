@@ -3,8 +3,8 @@
 Layout: activations (B, S, D); heads (B, S, H, hd), as in the reference.
 
 Two execution paths, as in the reference:
-  * ``attend`` — plain PyTorch attention over query chunks, with query and
-    key positions, a validity length and the reference's dtype rule. It
+  * ``attend`` — plain PyTorch attention with query and key positions, a
+    validity length and the reference's dtype rule, in one block. It
     serves decode against the ring cache (one query, the cache's own
     positions), which the reference also computes outside any kernel.
   * ``repro_torch.kernels.flash_attention.ops.flash_attention`` — the
@@ -90,9 +90,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            logit_softcap: Optional[float] = None,
            q_positions: Optional[torch.Tensor] = None,
            k_positions: Optional[torch.Tensor] = None,
-           kv_valid_len: Optional[int] = None,
-           q_chunk: int = 1024,
-           scale: Optional[float] = None) -> torch.Tensor:
+           kv_valid_len: Optional[int] = None) -> torch.Tensor:
     """GQA attention, the reference's XLA path in plain PyTorch.
 
     q: (B, Sq, H, hd); k, v: (B, Sk, n_kv, hd); positions 1-D. Returns
@@ -100,11 +98,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cache slots. Products run on operands in ``cdt`` (q's dtype if bf16 or
     f16, else f32) and sum in f32: the operands are upcast to f32, which
     is exact, so the f32 product equals the reference's low-precision
-    product with f32 accumulation up to the order of the sum."""
+    product with f32 accumulation up to the order of the sum. One block:
+    the reference chunks the queries, and decode has a single one."""
     B, Sq, H, hd = q.shape
     Sk, n_kv = k.shape[1], k.shape[2]
     G = H // n_kv
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scale = 1.0 / math.sqrt(hd)
     dev = q.device
     if q_positions is None:
         q_positions = torch.arange(Sq, device=dev)
@@ -118,25 +117,17 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf = k.to(cdt).float()
     vf = v.to(cdt).float()
 
-    def block(q_blk, qpos_blk):
-        s = torch.einsum("bcngh,bsnh->bncgs", q_blk, kf)
-        if logit_softcap is not None:
-            s = logit_softcap * torch.tanh(s / logit_softcap)
-        keep = _mask(qpos_blk, k_positions, causal=causal, window=window)
-        if kv_valid_len is not None:
-            keep &= (k_positions < kv_valid_len)[None, :]
-        s = torch.where(keep[None, None, :, None, :], s, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        p = torch.exp(s - m)
-        denom = p.sum(-1, keepdim=True)
-        o = torch.einsum("bncgs,bsnh->bcngh", p.to(cdt).float(), vf)
-        return o / denom.clamp_min(1e-30).transpose(1, 2).reshape(
-            B, q_blk.shape[1], n_kv, G, 1)
-
-    if Sq % q_chunk:   # largest divisor of Sq that is <= q_chunk
-        q_chunk = next(c for c in range(min(q_chunk, Sq), 0, -1) if Sq % c == 0)
-    out = torch.cat([block(qg[:, i:i + q_chunk], q_positions[i:i + q_chunk])
-                     for i in range(0, Sq, q_chunk)], dim=1)
+    s = torch.einsum("bcngh,bsnh->bncgs", qg, kf)
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    keep = _mask(q_positions, k_positions, causal=causal, window=window)
+    if kv_valid_len is not None:
+        keep &= (k_positions < kv_valid_len)[None, :]
+    s = torch.where(keep[None, None, :, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True)
+    out = torch.einsum("bncgs,bsnh->bcngh", p.to(cdt).float(), vf)
+    out = out / denom.clamp_min(1e-30).transpose(1, 2).reshape(B, Sq, n_kv, G, 1)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -161,15 +152,12 @@ class KVCache(NamedTuple):
 
 
 def init_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
-               dtype=torch.bfloat16, *, window: Optional[int] = None,
-               length: int = 0, device="cpu") -> KVCache:
-    w = s_max if window is None else min(s_max, window)
-    k = torch.zeros((batch, w, n_kv, head_dim), dtype=dtype, device=device)
-    pos = torch.arange(w, device=device) + max(0, length - w)
-    if length:   # a post-prefill cache: slots hold the last w positions
-        pos = torch.where(pos < length, pos, POS_SENTINEL)
-    else:
-        pos = torch.full((w,), POS_SENTINEL, device=device)
+               dtype=torch.bfloat16, *, length: int = 0, device) -> KVCache:
+    """s_max zeroed slots; with `length`, a post-prefill cache whose slots
+    hold the last s_max positions below `length`, the others empty."""
+    k = torch.zeros((batch, s_max, n_kv, head_dim), dtype=dtype, device=device)
+    pos = torch.arange(s_max, device=device) + max(0, length - s_max)
+    pos = torch.where(pos < length, pos, POS_SENTINEL)
     return KVCache(k, torch.zeros_like(k), pos.to(torch.int32), int(length))
 
 

@@ -118,12 +118,11 @@ def stack_init(gen: torch.Generator, cfg: ArchCfg, n_layers: int, *,
                    for _ in range(n_layers)])
 
 
-def layer_windows(cfg: ArchCfg, n_layers: int, *,
-                  force_local: bool = False) -> Optional[List[int]]:
+def layer_windows(cfg: ArchCfg, n_layers: int) -> Optional[List[int]]:
     """Per-layer window sizes (0 = global). None if all-global."""
     if cfg.window is None:
         return None
-    if cfg.alt_window and not force_local:
+    if cfg.alt_window:
         return [cfg.window if i % 2 == 0 else 0 for i in range(n_layers)]
     return [cfg.window] * n_layers
 
@@ -152,16 +151,10 @@ def stack_decode(params, x: torch.Tensor, caches: attn.KVCache, cfg: ArchCfg, *,
 
 
 def init_stack_cache(cfg: ArchCfg, n_layers: int, batch: int, s_max: int, *,
-                     windows: Optional[List[int]], length: int,
-                     dtype=torch.bfloat16, force_local: bool = False,
-                     device="cpu") -> attn.KVCache:
-    """Stacked ring caches (layer-leading). Slot capacity is uniform across
-    layers: full s_max normally, or the window size when every layer is
-    local (long-context windowed variants)."""
-    all_local = windows is not None and force_local
-    window = int(cfg.window) if (all_local and cfg.window) else None
-    one = attn.init_cache(batch, s_max, cfg.n_kv, cfg.hd, dtype, window=window,
-                          length=length, device=device)
+                     length: int, dtype=torch.bfloat16, device) -> attn.KVCache:
+    """Stacked ring caches (layer-leading) of s_max slots in every layer."""
+    one = attn.init_cache(batch, s_max, cfg.n_kv, cfg.hd, dtype, length=length,
+                          device=device)
     k = one.k.new_zeros((n_layers,) + tuple(one.k.shape))
     pos = one.pos[None].repeat(n_layers, 1)
     return attn.KVCache(k, torch.zeros_like(k), pos, one.length)

@@ -88,14 +88,6 @@ def test_plain_matches_pallas_interpret(B, Sq, Sk, H, n_kv, hd, causal, window,
     np.testing.assert_allclose(got, np.asarray(want), atol=F32_ATOL, rtol=0)
 
 
-def test_plain_scale_argument():
-    q, k, v = _inputs(1, 8, 8, 2, 1, 16, seed=3)
-    want = jref.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                          scale=0.3)
-    got = _port(q, k, v, torch.float32, scale=0.3)
-    np.testing.assert_allclose(got, np.asarray(want), atol=F32_ATOL, rtol=0)
-
-
 def test_fully_masked_row_is_the_mean_of_v_as_in_the_reference():
     """A window of 0 masks every key of every row: the reference's softmax
     over a row of -1e30 is uniform, so each output is the mean of v."""
