@@ -5,8 +5,8 @@
 Phases, in order; any failure exits non-zero:
 
 1. card: the nvidia-smi name and power limit, torch's device name;
-2. build: nvcc builds every kernel of the main path from `src/repro_torch/
-   kernels/csrc/` (one nvcc per source, all started together);
+2. build: nvcc builds every kernel from `src/repro_torch/kernels/csrc/`
+   (one nvcc per source, all started together);
 3. rewafl_select on the card against its plain PyTorch version, bitwise
    (indices, live flags and masks), at S in {100, 1e5, 1e6}, K = 20,
    eps in {0, 0.25}: all available, ~30% unavailable, fewer than K
@@ -21,34 +21,47 @@ Phases, in order; any failure exits non-zero:
    with window 64 and softcap 50 and as a global layer, granite's MQA,
    non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key; f32
    within atol 1e-5 (the sum order differs), bf16 within one bf16 step
-   (rtol 2**-7, atol 1e-5);
-6. times of each kernel, its plain version and one library call: device
-   time from CUDA events around a replayed CUDA graph of 10 calls
-   (median of 25, after warm-up), and the kernel's time per call issued
-   from Python; beside the least time the card could take for the work;
+   (rtol 2**-7, atol 1e-5); slstm against its plain version at B in
+   {1, 4}, T in {1, 17, 2048}, (NH, hd) in {(4, 64), (4, 512)}, f32 and
+   bf16, and with input-gate pre-activations near +60 (the stabiliser m):
+   h and the final state within 1e-5 of their scale (at least 1) in f32
+   and within one bf16 step of their scale (2**-7 of max |plain|) in
+   bf16; stat_util against its
+   plain version at (20, 32), (100, 17) and (1e6, 32), f32 and bf16
+   losses, within rtol 1e-5;
+6. times of each kernel, its plain version and one library call where
+   one PyTorch call computes the same function: device time from CUDA
+   events around a replayed CUDA graph of 10 calls (median of 25, after
+   warm-up; slstm 2 calls, median of 10), and the kernel's time per call
+   issued from Python; beside the least time the card could take for the
+   work; for slstm also the floor of its 2,048 sequential steps, the
+   kernel's per-step barrier alone on the same grid;
 7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
-   kernel's launch count read just after; then a small run on the card
-   held against the same run on the CPU (plain versions, same draws):
-   selections bitwise, losses and costs within rtol 1e-3;
-8. the serving path: `serve("llama3.2-3b", batch=4, prompt_len=2048,
-   tokens=32)` at full width (28 layers, d 3072, bf16 weights drawn on
-   the card), after one warm-up call, with every kernel's launch count
-   read just after (flash_attention: one per layer), then served 4 times
-   more for the median and spread of its times; then reduced llama3.2-3b
-   and gemma2-27b served on the card and on the CPU from the same
-   weights, f32 and bf16: greedy ids equal, last logits within 5e-4 of
-   their scale with f32 weights and 3e-2 with bf16 weights;
+   kernel's launch count read just after (stat_util once a round); then
+   a small run on the card held against the same run on the CPU (plain
+   versions, same draws): selections bitwise, losses and costs within
+   rtol 1e-3;
+8. the serving paths, each `serve(arch, batch=4, prompt_len=2048,
+   tokens=32)` at full width with bf16 weights drawn on the card, after
+   one warm-up call, with every kernel's launch count read just after,
+   then served again for the median and spread of its times:
+   llama3.2-3b (28 layers, d 3072; flash_attention once per layer, 5
+   serves) and xlstm-1.3b (48 layers, d 2048; slstm once per sLSTM layer,
+   6, 3 serves); then reduced llama3.2-3b, gemma2-27b and xlstm-1.3b
+   served on the card and on the CPU from the same weights, f32 and bf16:
+   greedy ids equal, last logits within 5e-4 of their scale with f32
+   weights and 3e-2 with bf16 weights;
 9. one JSON line of kernels, the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
 `--profile` adds, before the last lines, the device time of 5 FL-path
 rounds by kernel, from torch.profiler, and the device's busy share: that
 device time over the wall time of the same 5 rounds run without the
-profiler (which slows the host), and over the profiled wall time; then
-the device time by kernel of one full-width prefill, and of the same
-prefill with 8 decode steps, with the device's busy share of the
-serving run's unprofiled prefill and decode times.
+profiler (which slows the host), and over the profiled wall time; then,
+for each serving path, the device time by kernel of one full-width
+prefill, and of the same prefill with 8 decode steps, with the device's
+busy share of the serving run's unprofiled prefill and decode times.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -391,24 +404,175 @@ def time_flash(dev) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
 
 
+# -------------------------------------------------------------------- slstm
+
+MAIN_SLSTM = dict(B=4, T=2048, NH=4, hd=512)   # one xlstm-1.3b prefill layer
+# tolerances relative to a tensor's scale max|plain|: f32 within 1e-5 of
+# max(1, scale) (the sum order differs; m and n grow to 10-60 with large
+# input gates, where f32's own spacing is ~4e-6), bf16 within one bf16 step
+# of the scale (a product rounded on the other side of a tie moves the
+# steps after it)
+SLSTM_F32_REL = 1e-5
+SLSTM_BF16_REL = 2.0 ** -7
+
+
+def slstm_inputs(B, T, NH, hd, dtype, seed, dev, gate_shift=0.0):
+    """x_pre (B, T, NH, 4hd) ~ N(0, 0.25), `gate_shift` added to the input
+    gate's columns; R (NH, hd, 4hd) ~ N(0, 1/hd), as the model draws it."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, T, NH, 4, hd, generator=g, device=dev) * 0.5
+    x[:, :, :, 1] += gate_shift
+    r = torch.randn(NH, hd, 4 * hd, generator=g, device=dev) / hd ** 0.5
+    return x.reshape(B, T, NH, 4 * hd).to(dtype).contiguous(), r.to(dtype)
+
+
+def phase_slstm(dev) -> float:
+    """The kernel against its plain version on h and the final state; f32
+    within 1e-5 of max(1, max |plain|), bf16 within 2**-7 of max |plain|.
+    Returns the
+    main-path case's max |kernel - plain| on h."""
+    from repro_torch.kernels.slstm import ops, ref
+    cases = [(B, T, NH, hd, dt, 0.0) for B in (1, 4) for T in (1, 17, 2048)
+             for NH, hd in ((4, 64), (4, 512)) for dt in (torch.float32, torch.bfloat16)]
+    cases += [(4, 2048, 4, 512, torch.bfloat16, 60.0), (4, 17, 4, 64, torch.float32, 60.0)]
+    main_err = None
+    for i, (B, T, NH, hd, dt, shift) in enumerate(cases):
+        x, r = slstm_inputs(B, T, NH, hd, dt, 400 + i, dev, shift)
+        h, st = ops.slstm_scan(x, r)
+        want_h, want_st = ref.slstm_scan(x, r)
+        torch.cuda.synchronize()
+        name = f"B={B} T={T} NH={NH} hd={hd} {str(dt)[6:]}" + (
+            f" input gates +{shift:g}" if shift else "")
+        check(h.dtype == dt and h.shape == (B, T, NH, hd), f"slstm {name}: got {h.dtype} "
+              f"{tuple(h.shape)}")
+        errs = []
+        for what, got, want in [("h", h, want_h.to(dt))] + list(zip("hcnm", st, want_st)):
+            d = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            tol = (SLSTM_F32_REL * max(1.0, scale) if dt == torch.float32
+                   else SLSTM_BF16_REL * scale)
+            check(d <= tol and bool(torch.isfinite(got).all()),
+                  f"slstm {name}: {what} max |kernel - plain| = {d} > {tol} (scale {scale})")
+            errs.append(d)
+        tol = "1e-5 of max(1, scale)" if dt == torch.float32 else "2**-7 of scale"
+        print(f"slstm {name}: max_abs_err h {errs[0]:.3g}, final h/c/n/m "
+              f"{'/'.join(f'{e:.3g}' for e in errs[1:])} ({tol})", flush=True)
+        if (B, T, NH, hd, dt, shift) == (4, 2048, 4, 512, torch.bfloat16, 0.0):
+            main_err = errs[0]
+    return main_err
+
+
+def time_slstm(dev) -> dict:
+    """Times at the main path's call: one xlstm-1.3b prefill layer, B 4,
+    T 2048, NH 4, hd 512, bf16; and the floor of its 2,048 steps, the
+    per-step barrier alone on the kernel's grid."""
+    from repro_torch.kernels.slstm import ops, ref
+    B, T, NH, hd = (MAIN_SLSTM[k] for k in ("B", "T", "NH", "hd"))
+    x, r = slstm_inputs(B, T, NH, hd, torch.bfloat16, 7, dev)
+    # x_pre read once, h written once (bf16), R read once, the final
+    # state (4 f32 leaves) written once; 2 flops a term of h·R
+    n_bytes = 2 * (B * T * NH * 4 * hd + B * T * NH * hd + NH * hd * 4 * hd) \
+        + 4 * 4 * B * NH * hd
+    n_flops = 2 * B * T * NH * hd * 4 * hd
+    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOP_PER_S)
+    kernel = lambda: ops.slstm_scan(x, r)   # noqa: E731
+    return dict(ms=time_ms(kernel, reps=10, inner=2),
+                eager_ms=time_eager_ms(kernel, reps=5, inner=2),
+                plain_ms=time_ms(lambda: ref.slstm_scan(x, r), reps=3, inner=1),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                barrier_floor_ms=time_ms(lambda: ops.barrier_floor(
+                    B, T, NH, hd, torch.bfloat16, dev), reps=10, inner=2))
+
+
+# ---------------------------------------------------------------- stat_util
+
+STAT_CASES = [(20, 32), (100, 17), (1_000_000, 32)]   # (S, n); (20, 32) the FL path's
+STAT_RTOL = 1e-5   # the sum order differs
+
+
+def stat_inputs(S, n, dtype, seed, dev, sizes_dtype=torch.int32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    losses = (torch.rand(S, n, generator=g, device=dev) * 5).to(dtype)
+    sizes = torch.randint(1, 1000, (S,), generator=g, device=dev, dtype=torch.int32)
+    return losses, sizes.to(sizes_dtype)
+
+
+def phase_stat_util(dev) -> float:
+    """The kernel against its plain version within rtol 1e-5. Returns the FL
+    path's case's (20 x 32 f32) max |kernel - plain|."""
+    from repro_torch.kernels.stat_util import ops, ref
+    main_err = None
+    for i, (S, n) in enumerate(STAT_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            losses, sizes = stat_inputs(S, n, dt, 500 + i, dev)
+            got = ops.stat_utility(losses, sizes)
+            want = ref.stat_utility(losses, sizes)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and got.shape == (S,),
+                  f"stat_util ({S}, {n}) {dt}: got {got.dtype} {tuple(got.shape)}")
+            d = (got - want).abs()
+            rel = (d / want.abs().clamp_min(1e-30)).max().item()
+            check(rel <= STAT_RTOL, f"stat_util ({S}, {n}) {dt}: relative error {rel}")
+            print(f"stat_util S={S} n={n} {str(dt)[6:]}: max_abs_err {d.max().item():.3g}, "
+                  f"max relative {rel:.3g} (rtol {STAT_RTOL})", flush=True)
+            if main_err is None:
+                main_err = d.max().item()
+    return main_err
+
+
+def time_stat_util(dev, S: int, n: int) -> dict:
+    import math
+
+    from repro_torch.kernels.stat_util import ops, ref
+    losses, sizes = stat_inputs(S, n, torch.float32, 9, dev, sizes_dtype=torch.float32)
+    # losses and sizes read once, the (S,) utilities written once
+    b_ms, b_by = bound(n_bytes=4 * (S * n + 2 * S), n_flops=2 * S * n + 4 * S)
+    scale = sizes / math.sqrt(n)
+    kernel = lambda: ops.stat_utility(losses, sizes)   # noqa: E731
+    return dict(ms=time_ms(kernel), eager_ms=time_eager_ms(kernel),
+                plain_ms=time_ms(lambda: ref.stat_utility(losses, sizes)),
+                library_ms=time_ms(lambda: torch.linalg.vector_norm(losses, dim=1) * scale),
+                bound_ms=b_ms, bound_by=b_by)
+
+
 # ---------------------------------------------------------------- main path
 
+def _ops_modules():
+    from repro_torch.kernels.fedavg import ops as fedavg
+    from repro_torch.kernels.flash_attention import ops as flash_attention
+    from repro_torch.kernels.rewafl_select import ops as rewafl_select
+    from repro_torch.kernels.slstm import ops as slstm
+    from repro_torch.kernels.stat_util import ops as stat_util
+    return {"rewafl_select": rewafl_select, "fedavg": fedavg,
+            "flash_attention": flash_attention, "slstm": slstm, "stat_util": stat_util}
+
+
+def reset_launches() -> None:
+    for m in _ops_modules().values():
+        m.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: m.launches for k, m in _ops_modules().items()}
+
+
 def phase_main_path(dev):
-    from repro_torch.kernels.fedavg import ops as fedavg_ops
-    from repro_torch.kernels.rewafl_select import ops as select_ops
     from repro_torch.launch.fl_run import run_fl, summary
-    fedavg_ops.launches = select_ops.launches = 0
+    reset_launches()
     t0 = time.time()
     res = run_fl("cnn@mnist", "rewafl", small=False, n_clients=MAIN_S,
                  n_select=MAIN_K, rounds=MAIN_ROUNDS, eval_every=5, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = {"rewafl_select": select_ops.launches, "fedavg": fedavg_ops.launches}
+    counts = read_launches()
     R = res.rounds_run
     check(R == MAIN_ROUNDS, f"main path ran {R} rounds, not {MAIN_ROUNDS}")
-    check(counts["rewafl_select"] == R,
-          f"rewafl_select launched {counts['rewafl_select']} times in {R} rounds")
+    check(counts["rewafl_select"] == R == counts["stat_util"],
+          f"rewafl_select and stat_util launched {counts['rewafl_select']} and "
+          f"{counts['stat_util']} times in {R} rounds")
     check(counts["fedavg"] >= R, f"fedavg launched {counts['fedavg']} times in {R} rounds")
+    check(counts["flash_attention"] == counts["slstm"] == 0,
+          f"the FL path launched serving kernels: {counts}")
     for k, v in res.history.items():
         check(bool(np.all(np.isfinite(np.asarray(v, np.float64)))),
               f"history {k!r} has non-finite values")
@@ -477,49 +641,55 @@ def phase_small_agreement(dev) -> None:
 
 # ------------------------------------------------------------- serving path
 
-SERVE_ARCH, SERVE_B, SERVE_S, SERVE_TOKENS = "llama3.2-3b", 4, 2048, 32
-SERVE_REPEATS = 5   # timed serves: the first also counts the launches
+SERVE_B, SERVE_S, SERVE_TOKENS = 4, 2048, 32
+# timed serves of each serving path (the first also counts the launches)
+SERVE_REPEATS = {"llama3.2-3b": 5, "xlstm-1.3b": 3}
 
 
-def serve_params(dev):
-    """Full-width llama3.2-3b weights drawn on the card from seed 0."""
+def prefill_launches(cfg) -> dict:
+    """The kernel launches one prefill of `cfg` makes; every other kernel
+    must launch 0 times."""
+    if cfg.family == "ssm":
+        return {"slstm": cfg.n_layers // cfg.slstm_group}
+    return {"flash_attention": cfg.n_layers}
+
+
+def serve_params(dev, arch: str):
+    """Full-width weights of `arch` drawn on the card from seed 0."""
     from repro_torch.configs import get_config
     from repro_torch.models.api import get_model_api
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     t0 = time.time()
     with torch.inference_mode():
         params = get_model_api(cfg).init_params(
             torch.Generator(device=dev).manual_seed(0), cfg)
     torch.cuda.synchronize()
-    print(f"serve: {SERVE_ARCH} weights ({cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"serve: {arch} weights ({cfg.n_layers} layers, d {cfg.d_model}, "
           f"{cfg.param_dtype}) drawn on the card in {time.time() - t0:.1f} s", flush=True)
     return cfg, params
 
 
-def phase_serve(dev, cfg, params):
-    """The serving path at full width: prefill B 4 x S 2048, then 32 greedy
+def phase_serve(dev, arch: str, cfg, params):
+    """A serving path at full width: prefill B 4 x S 2048, then 32 greedy
     decode steps, with every kernel's launch count read just after; then
     the same serve again, for the median and spread of the times over
-    SERVE_REPEATS runs."""
+    SERVE_REPEATS[arch] runs."""
     from repro_torch.configs import param_count
-    from repro_torch.kernels.fedavg import ops as fedavg_ops
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.rewafl_select import ops as select_ops
     from repro_torch.launch.serve import serve, summary
     kw = dict(batch=SERVE_B, prompt_len=SERVE_S, params=params, device=dev)
-    serve(SERVE_ARCH, tokens=2, seed=1, **kw)   # warm-up: cuBLAS picks its kernels
+    serve(arch, tokens=2, seed=1, **kw)   # warm-up: cuBLAS picks its kernels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_ops.launches = fedavg_ops.launches = select_ops.launches = 0
-    res = serve(SERVE_ARCH, tokens=SERVE_TOKENS, seed=0, **kw)
-    counts = {"flash_attention": flash_ops.launches, "fedavg": fedavg_ops.launches,
-              "rewafl_select": select_ops.launches}
+    reset_launches()
+    res = serve(arch, tokens=SERVE_TOKENS, seed=0, **kw)
+    counts = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    check(counts["flash_attention"] == cfg.n_layers == res.flash_launches,
-          f"flash_attention launched {counts['flash_attention']} times in one "
-          f"prefill of {cfg.n_layers} layers")
-    check(counts["fedavg"] == counts["rewafl_select"] == 0,
-          f"the serving path launched FL kernels: {counts}")
+    want = {k: prefill_launches(cfg).get(k, 0) for k in counts}
+    check(counts == want, f"{arch}: one prefill launched {counts}, not {want}")
+    check((res.flash_launches, res.slstm_launches)
+          == (counts["flash_attention"], counts["slstm"]),
+          f"{arch}: the serve counted {res.flash_launches} flash and "
+          f"{res.slstm_launches} slstm launches, the kernels {counts}")
     check(tuple(res.ids.shape) == (SERVE_B, SERVE_TOKENS + 1),
           f"generated ids of shape {tuple(res.ids.shape)}")
     check(int(res.ids.min()) >= 0 and int(res.ids.max()) < cfg.vocab,
@@ -528,8 +698,9 @@ def phase_serve(dev, cfg, params):
           and bool(torch.isfinite(res.last_logits).all()),
           "last logits not finite or of the wrong shape")
     check(res.n_params == param_count(cfg), "parameter count")
-    runs = [summary(r) for r in [res] + [serve(SERVE_ARCH, tokens=SERVE_TOKENS, seed=0, **kw)
-                                         for _ in range(SERVE_REPEATS - 1)]]
+    repeats = SERVE_REPEATS[arch]
+    runs = [summary(r) for r in [res] + [serve(arch, tokens=SERVE_TOKENS, seed=0, **kw)
+                                         for _ in range(repeats - 1)]]
     out = summary(res)
     for key in ("prefill_ms", "decode_ms_per_token", "decode_tok_per_s"):
         vals = [r[key] for r in runs]
@@ -538,8 +709,8 @@ def phase_serve(dev, cfg, params):
     print(json.dumps(out), flush=True)
     spread = {k: (min(out[k + "_runs"]), max(out[k + "_runs"]))
               for k in ("prefill_ms", "decode_ms_per_token")}
-    print(f"serve: {SERVE_ARCH} {res.n_params / 1e9:.3f} B params; median of "
-          f"{SERVE_REPEATS}: prefill {SERVE_B} x {SERVE_S} in {out['prefill_ms']:.1f} ms "
+    print(f"serve: {arch} {res.n_params / 1e9:.3f} B params; median of "
+          f"{repeats}: prefill {SERVE_B} x {SERVE_S} in {out['prefill_ms']:.1f} ms "
           f"(range {spread['prefill_ms'][0]:.1f}-{spread['prefill_ms'][1]:.1f}), decode "
           f"{out['decode_ms_per_token']:.2f} ms/token (range "
           f"{spread['decode_ms_per_token'][0]:.2f}-{spread['decode_ms_per_token'][1]:.2f}; "
@@ -553,29 +724,34 @@ def phase_serve(dev, cfg, params):
 # test measures up to 4.1e-5 against the reference); with bf16 weights
 # every layer rounds to bf16 (up to 1.4e-2 there)
 SERVE_AGREE_REL = {"float32": 5e-4, "bfloat16": 3e-2}
+# (arch, prompt length): xlstm's prompt is one mLSTM chunk of 64
+AGREE_ARCHS = [("llama3.2-3b", 40), ("gemma2-27b", 40), ("xlstm-1.3b", 64)]
 
 
 def phase_serve_agreement(dev) -> None:
-    """Reduced llama3.2-3b and gemma2-27b (hd 64; gemma2 with windows and
-    softcaps), with f32 and with bf16 weights, served on the card and on
-    the CPU from the same weights: greedy ids equal, last logits within
-    SERVE_AGREE_REL of their scale."""
+    """Reduced llama3.2-3b, gemma2-27b (hd 64; gemma2 with windows and
+    softcaps) and xlstm-1.3b (8 layers, 4 sLSTM of hd 64), with f32 and
+    with bf16 weights, served on the card and on the CPU from the same
+    weights: greedy ids equal, last logits within SERVE_AGREE_REL of their
+    scale."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.api import get_model_api
-    for arch in ("llama3.2-3b", "gemma2-27b"):
+    for arch, prompt_len in AGREE_ARCHS:
         for dt, rel in SERVE_AGREE_REL.items():
             cfg = dataclasses.replace(get_config(arch, reduced=True), param_dtype=dt)
             params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
-            kw = dict(reduced=True, param_dtype=dt, batch=2, prompt_len=40, tokens=8,
-                      seed=5)
+            kw = dict(reduced=True, param_dtype=dt, batch=2, prompt_len=prompt_len,
+                      tokens=8, seed=5)
             cpu = serve(arch, device="cpu", params=params, **kw)
             card = serve(arch, device=dev, params=_to(params, dev), **kw)
             name = f"{arch} reduced {dt}"
-            check(card.flash_launches == cfg.n_layers,
-                  f"{name}: {card.flash_launches} flash launches on the card")
+            want = prefill_launches(cfg)
+            got = {k: v for k, v in (("flash_attention", card.flash_launches),
+                                     ("slstm", card.slstm_launches)) if v or k in want}
+            check(got == want, f"{name}: launches on the card {got}, not {want}")
             check(torch.equal(cpu.ids, card.ids),
                   f"{name}: greedy ids differ: {cpu.ids.tolist()} vs {card.ids.tolist()}")
             scale = cpu.last_logits.abs().max().item()
@@ -602,7 +778,7 @@ def _device_kernels(prof):
     return ev, sum(e.self_device_time_total for e in ev) / 1e6
 
 
-def phase_profile_serve(dev, params, main: dict) -> None:
+def phase_profile_serve(dev, arch: str, params, main: dict) -> None:
     """`--profile`: device time by kernel of one full-width prefill, and of
     the same prefill followed by 8 decode steps; the decode's device time
     per step is the difference over 8. Busy shares are taken against the
@@ -614,17 +790,17 @@ def phase_profile_serve(dev, params, main: dict) -> None:
     busy, top = {}, {}
     for n in (0, 8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            serve(SERVE_ARCH, tokens=n, **kw)
+            serve(arch, tokens=n, **kw)
         top[n], busy[n] = _device_kernels(prof)
     step_s = (busy[8] - busy[0]) / 8
-    print(f"profile serve: prefill device busy {busy[0] * 1e3:.1f} ms of "
+    print(f"profile serve {arch}: prefill device busy {busy[0] * 1e3:.1f} ms of "
           f"{main['prefill_ms']:.1f} ms unprofiled wall ({100 * busy[0] * 1e3 / main['prefill_ms']:.1f}%); "
           f"decode device busy {step_s * 1e3:.2f} ms/step of "
           f"{main['decode_ms_per_token']:.2f} ms unprofiled wall "
           f"({100 * step_s * 1e3 / main['decode_ms_per_token']:.1f}%)", flush=True)
     for n, label in ((0, "prefill"), (8, "prefill+8 decode")):
         for e in top[n][:10]:
-            print(f"profile serve {label}: {e.self_device_time_total / 1e3:9.2f} ms "
+            print(f"profile serve {arch} {label}: {e.self_device_time_total / 1e3:9.2f} ms "
                   f"{e.count:6d} calls  {e.key[:80]}", flush=True)
 
 
@@ -681,27 +857,38 @@ def main() -> None:
     phase_select(dev)   # bitwise: any difference has failed the run
     fed_err = phase_fedavg(dev)
     flash_err = phase_flash(dev)
+    slstm_err = phase_slstm(dev)
+    stat_err = phase_stat_util(dev)
     times = {"rewafl_select": time_select(dev), "fedavg": time_fedavg(dev),
-             "flash_attention": time_flash(dev)}
+             "flash_attention": time_flash(dev), "slstm": time_slstm(dev),
+             "stat_util": time_stat_util(dev, MAIN_K, 32)}
     for k, v in list(times.items()) + [
-            ("rewafl_select S=1e6", time_select(dev, 1_000_000))]:
-        extra = (f", padded rows {v['padded_ms']:.5f} ms"
-                 if "padded_ms" in v else "")
+            ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
+            ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
+        extra = (f", padded rows {v['padded_ms']:.5f} ms" if "padded_ms" in v else
+                 f", barrier floor {v['barrier_floor_ms']:.5f} ms"
+                 if "barrier_floor_ms" in v else "")
+        lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.5f} ms"
         print(f"time {k}: kernel {v['ms']:.5f} ms{extra} (issued from Python "
               f"{v['eager_ms']:.5f} ms), plain {v['plain_ms']:.5f} ms, library "
-              f"{v['library_ms']:.5f} ms, bound {v['bound_ms']:.6f} ms "
-              f"({v['bound_by']})", flush=True)
+              f"{lib}, bound {v['bound_ms']:.6f} ms ({v['bound_by']})", flush=True)
 
-    counts = phase_main_path(dev)       # the FL path: rewafl_select, fedavg
+    # the FL path: rewafl_select, fedavg, stat_util
+    counts = {k: v for k, v in phase_main_path(dev).items()
+              if k in ("rewafl_select", "fedavg", "stat_util")}
     phase_small_agreement(dev)
-    cfg, params = serve_params(dev)
-    serve_counts, serve_out = phase_serve(dev, cfg, params)
-    counts["flash_attention"] = serve_counts["flash_attention"]
-    phase_serve_agreement(dev)
-    if "--profile" in sys.argv[1:]:
+    profile = "--profile" in sys.argv[1:]
+    if profile:
         phase_profile(dev)
-        phase_profile_serve(dev, params, serve_out)
-    del params
+    for arch in SERVE_REPEATS:   # the serving paths: flash_attention, slstm
+        cfg, params = serve_params(dev, arch)
+        serve_counts, serve_out = phase_serve(dev, arch, cfg, params)
+        counts.update({k: serve_counts[k] for k in prefill_launches(cfg)})
+        if profile:
+            phase_profile_serve(dev, arch, params, serve_out)
+        del params
+        torch.cuda.empty_cache()
+    phase_serve_agreement(dev)
 
     meta = {
         "rewafl_select": ("src/repro_torch/kernels/csrc/rewafl_select.cu",
@@ -712,6 +899,11 @@ def main() -> None:
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/flash_attention.py:77",
                             flash_err, "bf16 rtol 2**-7 (f32 atol 1e-5)"),
+        "slstm": ("src/repro_torch/kernels/csrc/slstm.cu",
+                  "src/repro/kernels/slstm/slstm.py:59", slstm_err,
+                  "bf16 2**-7 of scale (f32 1e-5 of max(1, scale))"),
+        "stat_util": ("src/repro_torch/kernels/csrc/stat_util.cu",
+                      "src/repro/kernels/stat_util/stat_util.py:28", stat_err, "rtol 1e-5"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=counts[k], max_abs_err=err, **times[k], check=chk)

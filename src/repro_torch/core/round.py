@@ -4,7 +4,9 @@ Per round: uplink rates from the injected fading draw → per-device
 candidate H (policy) → latency/energy estimates → top-K selection by the
 Eqn-2 utility (the `rewafl_select` kernel op) → masked, vmapped local SGD
 on the K selected slots to the static H_max → FedAvg (the `fedavg`
-kernel op) → fleet-state update (Algorithm 1 lines 18–27).
+kernel op) → the selected devices' statistical utility from their probe
+losses (the `stat_util` kernel op) → fleet-state update (Algorithm 1
+lines 18–27).
 
 The round mirrors `repro.core.round.make_round_body` with faults,
 deadline, screen and async off. Two things differ by design:
@@ -31,6 +33,7 @@ from repro_torch.core.methods import MethodSpec
 from repro_torch.core.state import FleetState
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.rewafl_select import ops as rsel_ops
+from repro_torch.kernels.stat_util import ops as stat_util_ops
 from repro_torch.models.fl_models import FLModel, Params
 from repro_torch.sim.devices import DeviceFleet
 from repro_torch.sim.energy import min_round_cost, round_costs
@@ -207,7 +210,7 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
         probe = cfg.probe_size
         ls = vmap(lambda p, x, y: model.per_sample_loss(p, {"x": x, "y": y}))(
             model.layout.views(client), xk[:, :probe], yk[:, :probe])
-        l_loss_k, l_sq_k = ls.mean(1), (ls * ls).mean(1)
+        l_loss_k = ls.mean(1)
 
         # --- state update (lines 18–27) -----------------------------------
         succ, succ_k = participating, part_k
@@ -225,7 +228,7 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
             ext[scatter_idx] = torch.where(mask_k, vals_k, base[sel_idx])
             return ext[:S]
 
-        stat_k = util.statistical_utility(fleet.data_size[sel_idx], l_sq_k)
+        stat_k = stat_util_ops.stat_utility(ls, fleet.data_size[sel_idx])
         new_stat = scatter(state.last_stat, stat_k, succ_k)
         new_lll = scatter(state.last_local_loss, l_loss_k, succ_k)
         new_ecp = torch.where(succ, costs.e_comp, state.last_ecp)

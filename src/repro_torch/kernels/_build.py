@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("rewafl_select", "fedavg", "flash_attention")
+KERNELS = ("rewafl_select", "fedavg", "flash_attention", "slstm", "stat_util")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -1,9 +1,12 @@
-"""Serve a dense (or vlm) architecture: batched prefill + greedy decode
-through the serving stack (ring KV caches, prefill/decode steps), on a
-CUDA device by default. The port of `examples/serve_llm.py`.
+"""Serve a dense, vlm or ssm (xlstm) architecture: batched prefill +
+greedy decode through the serving stack (ring KV caches or recurrent
+states, prefill/decode steps), on a CUDA device by default. The port of
+`examples/serve_llm.py`.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch llama3.2-3b --batch 4 --prompt-len 2048 --tokens 32
+      (or --arch xlstm-1.3b; its prompt length must be a multiple of 64,
+      or at most 64: the mLSTM's chunk rule)
 (`--reduced` serves the CPU-sized variant, in f32 unless
 `--param-dtype bfloat16`; `--device cpu` runs on the CPU; without a GPU
 the default raises.) Weights are random, drawn from
@@ -22,6 +25,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import get_config, param_count
 from repro_torch.kernels.flash_attention import ops as flash
+from repro_torch.kernels.slstm import ops as slstm
 from repro_torch.models.api import get_model_api
 
 
@@ -33,6 +37,7 @@ class ServeResult:
     prefill_s: float           # prefill + first argmax, ends in a device sync
     decode_s: float            # all decode steps, ends in a device sync
     flash_launches: int        # flash-attention kernel launches in this call
+    slstm_launches: int        # sLSTM kernel launches in this call
     n_params: int
     batch: int
     prompt_len: int
@@ -74,7 +79,7 @@ def serve(arch: str, *, reduced: bool = False, batch: int = 4,
         if params is None:
             params = api.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
         inputs = make_batch(cfg, batch, prompt_len, seed, dev)
-        launches0 = flash.launches
+        flash0, slstm0 = flash.launches, slstm.launches
         _sync(dev)
         t0 = time.perf_counter()
         logits, state = api.prefill(params, inputs, cfg)
@@ -92,7 +97,8 @@ def serve(arch: str, *, reduced: bool = False, batch: int = 4,
         return ServeResult(arch=cfg.name, ids=torch.cat(out, dim=1).cpu(),
                            last_logits=logits[:, -1, :].float().cpu(),
                            prefill_s=prefill_s, decode_s=decode_s,
-                           flash_launches=flash.launches - launches0,
+                           flash_launches=flash.launches - flash0,
+                           slstm_launches=slstm.launches - slstm0,
                            n_params=param_count(cfg), batch=batch,
                            prompt_len=prompt_len, tokens=tokens)
 
@@ -104,7 +110,8 @@ def summary(res: ServeResult) -> dict:
             "decode_ms_per_token": res.decode_s * 1e3 / max(res.tokens, 1),
             "decode_tok_per_s": res.tokens * res.batch / res.decode_s
             if res.decode_s > 0 else None,
-            "flash_launches": res.flash_launches}
+            "flash_launches": res.flash_launches,
+            "slstm_launches": res.slstm_launches}
 
 
 def main(argv: Optional[list] = None) -> None:
@@ -115,7 +122,8 @@ def main(argv: Optional[list] = None) -> None:
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true",
-                    help="the CPU-sized variant (2 layers, d_model <= 256)")
+                    help="the CPU-sized variant (d_model <= 256; 2 layers, "
+                    "8 for xlstm)")
     ap.add_argument("--param-dtype", choices=("float32", "bfloat16"),
                     help="the weights' dtype (default: the config's)")
     ap.add_argument("--device", default="cuda")

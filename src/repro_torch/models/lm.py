@@ -1,5 +1,6 @@
-"""Decoder language models: the dense family (llama / deepseek / granite /
-gemma2) and the vlm family's language tower, for serving.
+"""Decoder language models for serving: the dense family (llama /
+deepseek / granite / gemma2), the vlm family's language tower, and the
+ssm family (xlstm).
 
 Per-family API (see ``repro_torch.models.api``), the reference's without
 its sharding argument:
@@ -10,8 +11,9 @@ its sharding argument:
 
 Decode-state convention: a "KV cache of seq_len" holds seq_len−1 prior
 tokens; decode_step writes token seq_len−1 (0-based) and attends the full
-seq_len context. The state is a ring cache of KV slots that decode_step
-writes in place and returns.
+seq_len context. The dense state is a ring cache of KV slots, the xlstm
+state the recurrent states of every layer; decode_step writes either in
+place and returns it.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ArchCfg
-from repro_torch.nn import layers
+from repro_torch.nn import layers, xlstm
 from repro_torch.nn import transformer as tf
 
 
@@ -101,6 +103,135 @@ def dense_decode_step(params, batch, state, cfg: ArchCfg):
     x, state = tf.stack_decode(params["stack"], x, state, cfg, use_moe=False,
                                windows=tf.layer_windows(cfg, cfg.n_layers))
     x = layers.rmsnorm(params["final_ln"], x, scale_plus_one=cfg.embed_scale)
+    return _final_logits(x, params, cfg), state
+
+
+# ============================================================ ssm (xlstm)
+#
+# The layers come in G = n_layers / g groups of 1 sLSTM + (g − 1) mLSTM
+# blocks, each a pre-norm residual block. Stacked leaves: slstm_stack
+# (G, …), mlstm_stack_inner (G, g − 1, …); where the reference scans over
+# them, the port loops.
+
+def _xlstm_dims(cfg: ArchCfg):
+    return (xlstm.mlstm_dims(cfg.d_model, cfg.n_heads),
+            xlstm.slstm_dims(cfg.d_model, cfg.n_heads))
+
+
+def _with_ln(gen: torch.Generator, core, cfg: ArchCfg, dt):
+    return {"ln": layers.rmsnorm_init(gen, cfg.d_model, dt), "core": core}
+
+
+def xlstm_init(gen: torch.Generator, cfg: ArchCfg):
+    """Random parameters drawn from `gen` on its device, in the reference's
+    tree."""
+    dt = _dtype(cfg)
+    md, sd = _xlstm_dims(cfg)
+    g = cfg.slstm_group
+    G = cfg.n_layers // g
+
+    def mlstm_layer():
+        return _with_ln(gen, xlstm.mlstm_init(gen, md, dtype=dt), cfg, dt)
+
+    return {
+        "embed": layers.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt),
+        "slstm_stack": tf.stack_trees([
+            _with_ln(gen, xlstm.slstm_init(gen, sd, dtype=dt), cfg, dt)
+            for _ in range(G)]),
+        "mlstm_stack_inner": tf.stack_trees([
+            tf.stack_trees([mlstm_layer() for _ in range(g - 1)]) for _ in range(G)]),
+        "final_ln": layers.rmsnorm_init(gen, cfg.d_model, dt),
+    }
+
+
+def xlstm_loss(params, batch, cfg: ArchCfg):
+    raise NotImplementedError("xlstm training waits for the training slice "
+                              "(ROADMAP A16)")
+
+
+def _xlstm_states(cfg: ArchCfg, batch: int, device):
+    """Stacked initial states: sLSTM (G, B, NH, hd) leaves, mLSTM caches
+    (G, g − 1, …) with zero conv buffers in the model's dtype."""
+    md, sd = _xlstm_dims(cfg)
+    g = cfg.slstm_group
+    G = cfg.n_layers // g
+    sst = xlstm.init_slstm_state(batch, sd, device=device)
+    mst = xlstm.init_mlstm_cache(batch, md, _dtype(cfg), device=device)
+
+    def rep(t, *lead):
+        return t.expand(*lead, *t.shape).clone()
+    return (xlstm.SLSTMState(*(rep(t, G) for t in sst)),
+            xlstm.MLSTMCache(xlstm.MLSTMState(*(rep(t, G, g - 1) for t in mst.state)),
+                             rep(mst.conv_buf, G, g - 1)))
+
+
+def _xlstm_backbone(params, x, cfg: ArchCfg):
+    """G × (1 sLSTM + (g − 1) mLSTM) from zero states. Returns (x after the
+    final norm, (stacked sLSTM states, stacked mLSTM caches)), the caches'
+    conv buffers zero."""
+    md, sd = _xlstm_dims(cfg)
+    sst, mst = _xlstm_states(cfg, x.shape[0], x.device)
+    for gi in range(cfg.n_layers // cfg.slstm_group):
+        slp = tf.layer_params(params["slstm_stack"], gi)
+        out, st = xlstm.slstm_forward(slp["core"], layers.rmsnorm(slp["ln"], x), sd,
+                                      return_state=True)
+        x = x + out
+        for leaf, new in zip(sst, st):
+            leaf[gi] = new
+        group = tf.layer_params(params["mlstm_stack_inner"], gi)
+        for li in range(cfg.slstm_group - 1):
+            p = tf.layer_params(group, li)
+            out, st = xlstm.mlstm_forward(p["core"], layers.rmsnorm(p["ln"], x), md,
+                                          return_state=True)
+            x = x + out
+            for leaf, new in zip(mst.state, st):
+                leaf[gi, li] = new
+    return layers.rmsnorm(params["final_ln"], x), (sst, mst)
+
+
+def xlstm_prefill(params, batch, cfg: ArchCfg):
+    """Prefill the prompt. Returns the last position's logits (B, 1, V) and
+    the recurrent state: the final sLSTM and mLSTM states of every layer.
+    Decode continues with the conv buffers reset to zeros, as the reference
+    documents (the window of 3 tokens is ≪ the context)."""
+    x = _embed(params, batch["tokens"], cfg)
+    x, state = _xlstm_backbone(params, x, cfg)
+    return _final_logits(x[:, -1:, :], params, cfg), state
+
+
+def xlstm_init_decode_state(cfg: ArchCfg, batch: int, kv_len: int, *,
+                            device="cuda"):
+    """Zero recurrent states for `batch` sequences on `device` (the card
+    unless asked); `kv_len` is unused: the state is O(1) in the context."""
+    return _xlstm_states(cfg, batch, resolve_device(device))
+
+
+def xlstm_decode_step(params, batch, state, cfg: ArchCfg):
+    """One greedy-decode step: batch["tokens"] (B, 1) → logits (B, 1, V);
+    every layer's state is written in place."""
+    md, sd = _xlstm_dims(cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    sst, mst = state
+    for gi in range(cfg.n_layers // cfg.slstm_group):
+        slp = tf.layer_params(params["slstm_stack"], gi)
+        out, st = xlstm.slstm_decode_step(
+            slp["core"], layers.rmsnorm(slp["ln"], x),
+            xlstm.SLSTMState(*(t[gi] for t in sst)), sd)
+        x = x + out
+        for leaf, new in zip(sst, st):
+            leaf[gi] = new
+        group = tf.layer_params(params["mlstm_stack_inner"], gi)
+        for li in range(cfg.slstm_group - 1):
+            p = tf.layer_params(group, li)
+            cache = xlstm.MLSTMCache(xlstm.MLSTMState(*(t[gi, li] for t in mst.state)),
+                                     mst.conv_buf[gi, li])
+            out, new = xlstm.mlstm_decode_step(p["core"], layers.rmsnorm(p["ln"], x),
+                                               cache, md)
+            x = x + out
+            for leaf, t in zip(mst.state, new.state):
+                leaf[gi, li] = t
+            mst.conv_buf[gi, li] = new.conv_buf
+    x = layers.rmsnorm(params["final_ln"], x)
     return _final_logits(x, params, cfg), state
 
 

@@ -1,4 +1,4 @@
-"""The layers the FL CNN and the dense LLMs need, in the JAX package's
+"""The layers the FL CNN and the LLMs need, in the JAX package's
 parameter layout.
 
 Parameters keep the reference's layout at every interface — dense
@@ -84,6 +84,17 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def causal_depthwise_conv1d(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution. x: (B, T, C); w: (k, 1, C) in the
+    reference's TIO layout, k − 1 zeros padded on the left; a
+    cross-correlation, as `F.conv1d` computes it."""
+    w = params["w"]
+    k = w.shape[0]
+    y = F.conv1d(F.pad(x.transpose(1, 2), (k - 1, 0)), w.permute(2, 1, 0),
+                 groups=x.shape[-1])
+    return y.transpose(1, 2) + params["b"]
 
 
 def conv2d_init(gen: torch.Generator, c_in: int, c_out: int, k: int) -> Params:

@@ -104,17 +104,17 @@ def n_layers_of(params) -> int:
     return params.shape[0]
 
 
-def _stack(trees):
+def stack_trees(trees):
     """Same-shaped trees → one tree whose leaves are stacked on axis 0."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+        return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
 
 
 def stack_init(gen: torch.Generator, cfg: ArchCfg, n_layers: int, *,
                use_moe: bool, dtype):
     """n_layers blocks, each leaf stacked along a leading layer axis."""
-    return _stack([block_init(gen, cfg, use_moe=use_moe, dtype=dtype)
+    return stack_trees([block_init(gen, cfg, use_moe=use_moe, dtype=dtype)
                    for _ in range(n_layers)])
 
 

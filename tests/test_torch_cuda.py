@@ -7,7 +7,11 @@ against the reference, are the oracle here. `rewafl_select` must match
 bitwise; `fedavg` within atol 1e-5 in f32 (another sum order) and 0.05
 in bf16; `flash_attention` within atol 1e-5 in f32 (another sum order)
 and one bf16 step in bf16 (rtol 2**-7, atol 1e-5: both round one f32
-result).
+result); `slstm` within 1e-5 of max(1, the tensor's scale max |plain|)
+in f32 (another sum order; m and n grow to 10-60 with large input gates)
+and one bf16 step of the scale (2**-7 of max |plain|) in bf16, on h and
+on the final state (a product rounded to bf16 on the other side of a tie
+moves the steps after it); `stat_util` within rtol 1e-5 (another sum order).
 """
 import numpy as np
 import pytest
@@ -20,6 +24,10 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.rewafl_select import ops as select_ops
 from repro_torch.kernels.rewafl_select import ref as select_ref
+from repro_torch.kernels.slstm import ops as slstm_ops
+from repro_torch.kernels.slstm import ref as slstm_ref
+from repro_torch.kernels.stat_util import ops as stat_ops
+from repro_torch.kernels.stat_util import ref as stat_ref
 
 
 @pytest.fixture
@@ -173,4 +181,111 @@ def test_prefill_launches_the_kernel_once_per_layer(dev, arch):
     before = flash_ops.launches
     res = serve(arch, reduced=True, batch=2, prompt_len=24, tokens=3, device=dev)
     assert res.flash_launches == flash_ops.launches - before == cfg.n_layers
+    assert res.slstm_launches == 0
+    assert res.ids.shape == (2, 4) and torch.isfinite(res.last_logits).all()
+
+
+# B, T, NH, hd: reduced xlstm-1.3b (hd 64) and full width (hd 512)
+SLSTM_CASES = [(1, 1, 4, 64), (4, 17, 4, 64), (2, 64, 4, 64), (4, 33, 4, 512),
+               (1, 5, 4, 512), (16, 9, 4, 512), (3, 12, 1, 32)]
+
+
+def _slstm_inputs(B, T, NH, hd, dtype, dev, seed, gate_shift=0.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, T, NH, 4, hd, generator=g, device=dev) * 0.5
+    x[:, :, :, 1] += gate_shift
+    r = torch.randn(NH, hd, 4 * hd, generator=g, device=dev) / hd ** 0.5
+    return x.reshape(B, T, NH, 4 * hd).to(dtype), r.to(dtype)
+
+
+def _assert_slstm_close(got, want, dtype):
+    d = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        assert d <= 1e-5 * max(1.0, scale), (d, scale)
+    else:
+        assert d <= 2.0 ** -7 * scale, (d, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,NH,hd", SLSTM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_matches_plain(dev, B, T, NH, hd, dtype):
+    x, r = _slstm_inputs(B, T, NH, hd, dtype, dev, B * T + hd)
+    before = slstm_ops.launches
+    h, st = slstm_ops.slstm_scan(x, r)
+    want_h, want_st = slstm_ref.slstm_scan(x, r)
+    torch.cuda.synchronize()
+    assert slstm_ops.launches == before + 1
+    assert h.dtype == dtype and h.shape == (B, T, NH, hd)
+    _assert_slstm_close(h, want_h.to(dtype), dtype)
+    for got, want in zip(st, want_st):
+        assert got.dtype == torch.float32 and got.shape == (B, NH, hd)
+        _assert_slstm_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_from_a_state_and_large_input_gates(dev, dtype):
+    """Input-gate pre-activations of ~+60 (the stabiliser m at work), and a
+    second call continuing from the first's final state."""
+    x, r = _slstm_inputs(4, 40, 4, 64, dtype, dev, 5, gate_shift=60.0)
+    h1, st1 = slstm_ops.slstm_scan(x[:, :25].contiguous(), r)
+    h2, st2 = slstm_ops.slstm_scan(x[:, 25:].contiguous(), r, st1)
+    want_h, want_st = slstm_ref.slstm_scan(x, r)
+    torch.cuda.synchronize()
+    assert torch.isfinite(h2.float()).all() and torch.isfinite(st2[3]).all()
+    _assert_slstm_close(torch.cat([h1, h2], 1), want_h.to(dtype), dtype)
+    for got, want in zip(st2, want_st):
+        _assert_slstm_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_slstm_rejects_what_the_kernel_does_not_take(dev):
+    x, r = _slstm_inputs(17, 3, 4, 64, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="batch"):
+        slstm_ops.slstm_scan(x, r)
+    x, r = _slstm_inputs(2, 3, 4, 64, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        slstm_ops.slstm_scan(x, r.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm_ops.slstm_scan(x.transpose(0, 1), r)
+    x, r = _slstm_inputs(16, 3, 8, 512, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match="fits"):      # 256 blocks at least
+        slstm_ops.slstm_scan(x, r)
+    x, r = _slstm_inputs(1, 3, 1, 2048, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="resident"):  # 512 KB of R a block
+        slstm_ops.slstm_scan(x, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n", [(20, 32), (100, 17), (1, 5), (100_000, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stat_util_matches_plain(dev, S, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(S + n)
+    losses = (torch.rand(S, n, generator=g, device=dev) * 5).to(dtype)
+    sizes = torch.randint(1, 1000, (S,), generator=g, device=dev, dtype=torch.int32)
+    before = stat_ops.launches
+    got = stat_ops.stat_utility(losses, sizes)
+    want = stat_ref.stat_utility(losses, sizes)
+    torch.cuda.synchronize()
+    assert stat_ops.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    padded = torch.zeros(S, n + 3, device=dev, dtype=dtype)[:, :n]
+    padded.copy_(losses)
+    torch.testing.assert_close(stat_ops.stat_utility(padded, sizes), want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_prefill_launches_slstm_once_per_slstm_layer(dev, param_dtype):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    cfg = get_config("xlstm-1.3b", reduced=True)
+    before = slstm_ops.launches, flash_ops.launches
+    res = serve("xlstm-1.3b", reduced=True, batch=2, prompt_len=64, tokens=3, device=dev,
+                param_dtype=param_dtype)
+    n_slstm = cfg.n_layers // cfg.slstm_group
+    assert res.slstm_launches == slstm_ops.launches - before[0] == n_slstm
+    assert res.flash_launches == flash_ops.launches - before[1] == 0
     assert res.ids.shape == (2, 4) and torch.isfinite(res.last_logits).all()

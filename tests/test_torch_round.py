@@ -3,6 +3,9 @@ the reference's (`repro.core.round.make_round_body`, kernel_backend
 "xla"), on the CPU at small widths: the same fleet, data and params, and
 the reference's own random draws handed to the port as `RoundNoise`.
 
+The port's round computes the selected devices' statistical utility
+through the `stat_util` kernel wrapper (its plain version for CPU
+tensors); the reference's round through `util.statistical_utility`.
 Selection masks and slot indices must match bitwise. Floats must match
 within atol 1e-5 plus rtol 1e-5: the two frameworks sum and convolve in
 different orders, so trained losses differ in the last bits, and

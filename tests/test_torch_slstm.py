@@ -1,0 +1,151 @@
+"""Parity of the port's sLSTM recurrence (`repro_torch.kernels.slstm`)
+with the reference's, on the CPU: the plain version (what the wrapper runs
+for a CPU tensor) against
+
+- the Pallas kernel in interpret mode and its lax.scan oracle, with f32
+  weights, at the reference kernel test's shapes plus one at hd 64: atol
+  2e-5, as there (measured ≤ 1.2e-7; the two frameworks' tanh, exp and
+  log1p differ in the last bit);
+- the model's final state, `repro.nn.xlstm.slstm_forward(...,
+  return_state=True)`, on the same pre-activations, with f32 and with bf16
+  weights;
+- the model cell (`_slstm_cell` scanned over time) with bf16 weights.
+
+With bf16 weights h is rounded to bf16 before each product and the product
+is rounded to bf16, on both sides. Each step's product agrees bitwise, but
+a last-bit f32 difference in tanh or exp can flip the bf16 rounding of one
+h, which moves the next steps: over 64 steps h stays within one bf16 step
+(2**-7) of its scale, as do the states c, n and m (measured ≤ 4.1e-4 of
+scale). The CUDA kernel is held against the plain version on the card
+(`tests/test_torch_cuda.py`, `chip_smoke.py`)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.slstm import ref as j_ref
+from repro.kernels.slstm import slstm as j_kernel
+from repro.nn import layers as jlayers
+from repro.nn import xlstm as jx
+from repro_torch.kernels.slstm import ops, ref
+
+F32_ATOL = 2e-5
+BF16_REL = 2.0 ** -7
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.array(np.asarray(a).astype(np.float32))).to(getattr(torch, dtype))
+
+
+def _inputs(B, T, NH, hd, seed, *, x_scale=0.5, r_scale=None):
+    rng = np.random.RandomState(seed)
+    xp = (rng.standard_normal((B, T, NH * 4 * hd)) * x_scale).astype(np.float32)
+    r_scale = 1.0 / np.sqrt(hd) if r_scale is None else r_scale
+    r = (rng.standard_normal((NH, hd, 4 * hd)) * r_scale).astype(np.float32)
+    return xp, r
+
+
+def _close_to_scale(got, want, rel):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err, scale = np.abs(got - want).max(), np.abs(want).max()
+    assert err <= rel * scale, (err, scale)
+
+
+@pytest.mark.parametrize("B,T,NH,hd", [(1, 8, 2, 8), (2, 16, 4, 16), (3, 12, 1, 32),
+                                       (2, 24, 4, 64)])
+def test_plain_matches_pallas_kernel_and_oracle(B, T, NH, hd):
+    xp, r = _inputs(B, T, NH, hd, B * T + hd, r_scale=0.2)
+    h, st = ref.slstm_scan(_t(xp).reshape(B, T, NH, 4 * hd), _t(r))
+    assert h.dtype == torch.float32 and h.shape == (B, T, NH, hd)
+    assert all(s.shape == (B, NH, hd) and s.dtype == torch.float32 for s in st)
+    want_k = j_kernel.slstm_scan(jnp.asarray(xp), jnp.asarray(r), nh=NH, interpret=True)
+    want_o = j_ref.slstm_scan(jnp.asarray(xp).reshape(B, T, NH, 4 * hd), jnp.asarray(r))
+    np.testing.assert_allclose(h.reshape(B, T, NH * hd).numpy(), np.asarray(want_k),
+                               atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_o), atol=F32_ATOL, rtol=0)
+    # the final h is the last step's
+    assert torch.equal(st[0], h[:, -1])
+
+
+def _j_slstm_params(NH, hd, dtype, seed):
+    d = NH * hd
+    p = jx.slstm_init(jax.random.PRNGKey(seed), jx.slstm_dims(d, NH), dtype=jnp.float32)
+    p["r"] = p["r"] * 2.0   # a livelier recurrence than init's
+    return jax.tree.map(lambda a: a.astype(dtype), p)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_final_state_matches_model_forward(dtype):
+    B, T, NH, hd = 2, 32, 4, 64
+    d = NH * hd
+    params = _j_slstm_params(NH, hd, dtype, 3)
+    x = jnp.asarray(np.random.RandomState(4).standard_normal((B, T, d)).astype(np.float32)
+                    ).astype(dtype)
+    _, jst = jx.slstm_forward(params, x, jx.slstm_dims(d, NH), return_state=True)
+    x_pre = jlayers.dense(params["w_in"], x)          # the model's own pre-activations
+    h, st = ref.slstm_scan(_t(x_pre, dtype).reshape(B, T, NH, 4 * hd), _t(params["r"], dtype))
+    for got, want in zip(st, jst):
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL, rtol=1e-5)
+        else:
+            _close_to_scale(got.numpy(), want, BF16_REL)
+
+
+def test_bf16_matches_model_cell():
+    B, T, NH, hd = 2, 64, 4, 64
+    xp, r = _inputs(B, T, NH, hd, 5)
+    jxp, jr = jnp.asarray(xp).astype(jnp.bfloat16), jnp.asarray(r).astype(jnp.bfloat16)
+    sd = jx.slstm_dims(NH * hd, NH)
+
+    def step(st, xt):
+        h, new = jx._slstm_cell({"r": jr}, xt, st, sd)
+        return new, h
+
+    jst, jh = jax.lax.scan(step, jx.init_slstm_state(B, sd), jxp.swapaxes(0, 1))
+    h, st = ops.slstm_scan(_t(jxp, "bfloat16").reshape(B, T, NH, 4 * hd), _t(jr, "bfloat16"))
+    assert h.dtype == torch.bfloat16     # the wrapper returns x_pre's dtype
+    _close_to_scale(h.float().reshape(B, T, NH * hd).numpy(),
+                    np.asarray(jh.swapaxes(0, 1).astype(jnp.bfloat16).astype(jnp.float32)),
+                    BF16_REL)
+    for got, want in zip(st, jst):
+        _close_to_scale(got.numpy(), want, BF16_REL)
+
+
+def test_state_carries_across_calls():
+    """Two calls, the second from the first's final state, equal one call."""
+    B, T, NH, hd = 2, 20, 2, 16
+    xp, r = _inputs(B, T, NH, hd, 6)
+    x = _t(xp).reshape(B, T, NH, 4 * hd)
+    h, st = ops.slstm_scan(x, _t(r))
+    h1, st1 = ops.slstm_scan(x[:, :7], _t(r))
+    h2, st2 = ops.slstm_scan(x[:, 7:], _t(r), st1)
+    assert torch.equal(torch.cat([h1, h2], 1), h)
+    assert all(torch.equal(a, b) for a, b in zip(st2, st))
+
+
+def test_large_input_gates_stay_finite():
+    """Input-gate pre-activations far above exp's range: m keeps the
+    exponentials finite, and the state stays finite."""
+    B, T, NH, hd = 2, 12, 2, 16
+    xp, r = _inputs(B, T, NH, hd, 7)
+    xp = xp.reshape(B, T, NH, 4, hd)
+    xp[:, :, :, 1] += 120.0
+    h, st = ref.slstm_scan(_t(xp).reshape(B, T, NH, 4 * hd), _t(r))
+    want = j_ref.slstm_scan(jnp.asarray(xp).reshape(B, T, NH, 4 * hd), jnp.asarray(r))
+    assert torch.isfinite(h).all() and all(torch.isfinite(s).all() for s in st)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want), atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,NH,hd,J", [(4, 4, 512, 16), (1, 4, 512, 16), (4, 4, 64, 2),
+                                       (16, 4, 512, 16), (3, 1, 32, 2)])
+def test_block_split(B, NH, hd, J):
+    """xlstm-1.3b (hd 512) and its reduced config (hd 64) on an H100's 132
+    SMs: 128 blocks, one per SM; at hd 32 the 64 threads of a column
+    (J = 1) would not split hd evenly."""
+    assert ops.pick_units(B, NH, hd, 132) == J
+
+
+def test_block_split_raises_when_no_grid_fits():
+    with pytest.raises(ValueError, match="fits"):
+        ops.pick_units(16, 4, 4096, 132)
