@@ -6,7 +6,9 @@ Phases, in order; any failure exits non-zero:
 
 1. card: the nvidia-smi name and power limit, torch's device name;
 2. build: nvcc builds every kernel from `src/repro_torch/kernels/csrc/`
-   (one nvcc per source, all started together);
+   (one nvcc per source, all started together), and prints ptxas's
+   registers and spills of the flash-attention kernels (`-Xptxas -v`); the
+   bf16 tensor-core kernel must not spill;
 3. rewafl_select on the card against its plain PyTorch version, bitwise
    (indices, live flags and masks), at S in {100, 1e5, 1e6}, K = 20,
    eps in {0, 0.25}: all available, ~30% unavailable, fewer than K
@@ -19,9 +21,10 @@ Phases, in order; any failure exits non-zero:
 5. flash_attention against its plain version: llama heads (H 24, n_kv 8,
    hd 128) causal at S in {17, 128, 2048}, gemma2 heads (H 32, n_kv 16)
    with window 64 and softcap 50 and as a global layer, granite's MQA,
-   non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key; f32
-   within atol 1e-5 (the sum order differs), bf16 within one bf16 step
-   (rtol 2**-7, atol 1e-5); slstm against its plain version at B in
+   non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key, and
+   bf16 at hd 64 with ragged Sq and Sk; f32 within atol 1e-5 (the sum order
+   differs), bf16 within one bf16 step (rtol 2**-7, atol 1e-5); bf16 runs
+   the tensor-core kernel, f32 the CUDA-core one (counted); slstm against its plain version at B in
    {1, 4}, T in {1, 17, 2048}, (NH, hd) in {(4, 64), (4, 512)}, f32 and
    bf16, and with input-gate pre-activations near +60 (the stabiliser m):
    h and the final state within 1e-5 of their scale (at least 1) in f32
@@ -46,12 +49,13 @@ Phases, in order; any failure exits non-zero:
    tokens=32)` at full width with bf16 weights drawn on the card, after
    one warm-up call, with every kernel's launch count read just after,
    then served again for the median and spread of its times:
-   llama3.2-3b (28 layers, d 3072; flash_attention once per layer, 5
-   serves) and xlstm-1.3b (48 layers, d 2048; slstm once per sLSTM layer,
+   llama3.2-3b (28 layers, d 3072; flash_attention's tensor-core kernel
+   once per layer, 5 serves) and xlstm-1.3b (48 layers, d 2048; slstm once per sLSTM layer,
    6, 3 serves); then reduced llama3.2-3b, gemma2-27b and xlstm-1.3b
    served on the card and on the CPU from the same weights, f32 and bf16:
    greedy ids equal, last logits within 5e-4 of their scale with f32
-   weights and 3e-2 with bf16 weights;
+   weights and 3e-2 with bf16 weights (f32 weights run the CUDA-core
+   flash kernel, bf16 the tensor-core one);
 9. one JSON line of kernels, the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -339,6 +343,14 @@ FLASH_CASES = [
      None, torch.float32),
     ("non-causal window 0 (the last row sees no key) S=130 f32", 1, 130, 130, 4, 2, 64,
      False, 0, None, torch.float32),
+    ("causal Sq=200 > Sk=70, hd 64 bf16", 2, 200, 70, 4, 2, 64, True, None, None,
+     torch.bfloat16),
+    ("non-causal Sq=100 Sk=257, hd 64 bf16", 1, 100, 257, 8, 2, 64, False, None, None,
+     torch.bfloat16),
+    ("window 16 softcap 30 S=77, hd 64 bf16", 2, 77, 77, 8, 8, 64, True, 16, 30.0,
+     torch.bfloat16),
+    ("every row masked (causal, window 0) S=130 hd 64 bf16", 1, 130, 130, 4, 2, 64, True, 0,
+     None, torch.bfloat16),
 ]
 MAIN_FLASH = dict(B=4, S=2048, H=24, n_kv=8, hd=128)   # llama3.2-3b prefill
 FLASH_F32_ATOL = 1e-5        # the sum order differs
@@ -361,11 +373,14 @@ def phase_flash(dev) -> float:
     for i, (name, B, Sq, Sk, H, n_kv, hd, causal, window, softcap, dt) in enumerate(
             FLASH_CASES):
         q, k, v = flash_inputs(B, Sq, Sk, H, n_kv, hd, dt, 300 + i, dev)
+        tc0 = ops.tc_launches
         got = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
         want = ref.attention(q, k, v, causal=causal, window=window, logit_softcap=softcap)
         torch.cuda.synchronize()
         check(got.dtype == dt and got.shape == q.shape,
               f"flash {name}: got {got.dtype} {tuple(got.shape)}")
+        check(ops.tc_launches - tc0 == int(dt == torch.bfloat16),
+              f"flash {name}: the tensor-core kernel ran {ops.tc_launches - tc0} times")
         d = (got.float() - want.float()).abs()
         err = d.max().item()
         if dt == torch.float32:
@@ -550,10 +565,16 @@ def _ops_modules():
 def reset_launches() -> None:
     for m in _ops_modules().values():
         m.launches = 0
+    _ops_modules()["flash_attention"].tc_launches = 0
 
 
 def read_launches() -> dict:
     return {k: m.launches for k, m in _ops_modules().items()}
+
+
+def read_tc_launches() -> int:
+    """Launches of flash_attention's bf16 tensor-core kernel."""
+    return _ops_modules()["flash_attention"].tc_launches
 
 
 def phase_main_path(dev):
@@ -682,10 +703,13 @@ def phase_serve(dev, arch: str, cfg, params):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = serve(arch, tokens=SERVE_TOKENS, seed=0, **kw)
-    counts = read_launches()
+    counts, tc = read_launches(), read_tc_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {k: prefill_launches(cfg).get(k, 0) for k in counts}
     check(counts == want, f"{arch}: one prefill launched {counts}, not {want}")
+    # bf16 weights: every attention launch is the tensor-core kernel's
+    check(tc == counts["flash_attention"],
+          f"{arch}: {tc} of {counts['flash_attention']} flash launches on the tensor cores")
     check((res.flash_launches, res.slstm_launches)
           == (counts["flash_attention"], counts["slstm"]),
           f"{arch}: the serve counted {res.flash_launches} flash and "
@@ -746,12 +770,17 @@ def phase_serve_agreement(dev) -> None:
             kw = dict(reduced=True, param_dtype=dt, batch=2, prompt_len=prompt_len,
                       tokens=8, seed=5)
             cpu = serve(arch, device="cpu", params=params, **kw)
+            tc0 = read_tc_launches()
             card = serve(arch, device=dev, params=_to(params, dev), **kw)
             name = f"{arch} reduced {dt}"
             want = prefill_launches(cfg)
             got = {k: v for k, v in (("flash_attention", card.flash_launches),
                                      ("slstm", card.slstm_launches)) if v or k in want}
             check(got == want, f"{name}: launches on the card {got}, not {want}")
+            tc_want = card.flash_launches if dt == "bfloat16" else 0
+            check(read_tc_launches() - tc0 == tc_want,
+                  f"{name}: {read_tc_launches() - tc0} tensor-core flash launches, "
+                  f"not {tc_want}")
             check(torch.equal(cpu.ids, card.ids),
                   f"{name}: greedy ids differ: {cpu.ids.tolist()} vs {card.ids.tolist()}")
             scale = cpu.last_logits.abs().max().item()
@@ -833,6 +862,24 @@ def phase_profile(dev) -> None:
 
 # --------------------------------------------------------------------- main
 
+def print_ptxas(name: str, report: str) -> None:
+    """Registers and spills of each function of kernel `name`, from
+    ptxas; fails if the bf16 tensor-core kernel spills."""
+    lines = report.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" not in line:
+            continue
+        fn = line.split("Function properties for")[-1].strip()
+        kind = ("tensor-core bf16" if "flash_fwd_tc_kernel" in fn else "CUDA-core f32")
+        hd = fn.split("ILi")[1].split("E")[0] if "ILi" in fn else "?"
+        used = next((x.split(":")[-1].strip() for x in lines[i + 1:i + 3] if "Used" in x), "?")
+        spills = lines[i + 1].strip()
+        print(f"ptxas {name} {kind} hd {hd}: {used}; {spills}", flush=True)
+        if "flash_fwd_tc_kernel" in fn:
+            check(" 0 bytes spill stores, 0 bytes spill loads" in " " + spills,
+                  f"the tensor-core flash kernel spills at hd {hd}: {spills}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one GPU")
@@ -853,6 +900,7 @@ def main() -> None:
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {', '.join(sorted(libs))} in {time.time() - t0:.1f} s", flush=True)
+    print_ptxas("flash_attention", _build.ptxas_report("flash_attention"))
 
     phase_select(dev)   # bitwise: any difference has failed the run
     fed_err = phase_fedavg(dev)

@@ -4,14 +4,16 @@ Each source has a plain C interface and is compiled on its own by nvcc
 for Hopper into a shared library, then loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <lib> csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
 No `--use_fast_math`: the selection kernel's masks must match the plain
 version bitwise, which needs IEEE division. Libraries go to
 `build/repro_torch_kernels/` under the repository root (git-ignored),
 named by a hash of the source and flags, so an edited source rebuilds
-and an unchanged one is reused. Nothing is built at import time: the
-first launch (or `build_all`) compiles.
+and an unchanged one is reused; ptxas's report of each kernel's
+registers, shared memory and spills (`-Xptxas -v`) is kept beside the
+library (`ptxas_report`). Nothing is built at import time: the first
+launch (or `build_all`) compiles.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("rewafl_select", "fedavg", "flash_attention", "slstm", "stat_util")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -70,10 +72,17 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
             os.unlink(tmp)
             failed.append(f"{n}: nvcc exited {p.returncode}\n{log}")
         else:
+            out[n].with_suffix(".log").write_text(log)
             os.replace(tmp, out[n])   # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas said when kernel `name` was built (registers, shared
+    memory and spills of each function), after `build_all`."""
+    return lib_path(name).with_suffix(".log").read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

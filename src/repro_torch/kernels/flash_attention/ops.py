@@ -1,9 +1,11 @@
 """Dispatch for flash attention.
 
 `flash_attention` is the wrapper: tensors on the CPU run the plain
-version (`ref.attention`); tensors on a CUDA device launch the
-hand-written kernel (`csrc/flash_attention.cu`) or raise — there is no
-fallback. `launches` counts kernel launches.
+version (`ref.attention`); tensors on a CUDA device launch one of the
+two hand-written kernels of `csrc/flash_attention.cu` by dtype — bf16 the
+tensor-core kernel (TMA, wgmma), f32 the CUDA-core one — or raise: there
+is no fallback. `launches` counts launches of either kernel,
+`tc_launches` those of the tensor-core kernel alone.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
-launches = 0   # kernel launches since the last reset (a plain counter)
+launches = 0      # kernel launches since the last reset (a plain counter)
+tc_launches = 0   # of which the bf16 tensor-core kernel's
 
 HEAD_DIMS = (64, 128)   # head widths the kernel is compiled for
 
@@ -39,7 +42,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
-    global launches
+    global launches, tc_launches
     if q.dtype not in _ENTRY:
         raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
     if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
@@ -64,6 +67,9 @@ def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
         raise ValueError("flash_attention: shape outside the kernel's grid")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be positive, got {softcap}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must start 16-byte aligned "
+                         "(the kernel reads them with TMA)")
     out = torch.empty_like(q)
     err = getattr(_lib(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H,
@@ -74,6 +80,7 @@ def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     launches += 1
+    tc_launches += int(q.dtype == torch.bfloat16)
     return out
 
 

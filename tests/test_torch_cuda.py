@@ -7,7 +7,7 @@ against the reference, are the oracle here. `rewafl_select` must match
 bitwise; `fedavg` within atol 1e-5 in f32 (another sum order) and 0.05
 in bf16; `flash_attention` within atol 1e-5 in f32 (another sum order)
 and one bf16 step in bf16 (rtol 2**-7, atol 1e-5: both round one f32
-result); `slstm` within 1e-5 of max(1, the tensor's scale max |plain|)
+result; bf16 runs the tensor-core kernel, f32 the CUDA-core one); `slstm` within 1e-5 of max(1, the tensor's scale max |plain|)
 in f32 (another sum order; m and n grow to 10-60 with large input gates)
 and one bf16 step of the scale (2**-7 of max |plain|) in bf16, on h and
 on the final state (a product rounded to bf16 on the other side of a tie
@@ -143,17 +143,48 @@ def test_flash_attention_matches_plain(dev, B, Sq, Sk, H, n_kv, hd, causal,
     k = torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).to(dtype)
     v = torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).to(dtype)
     kw = dict(causal=causal, window=window)
-    before = flash_ops.launches
+    before = flash_ops.launches, flash_ops.tc_launches
     got = flash_ops.flash_attention(q, k, v, softcap=softcap, **kw)
     want = flash_ref.attention(q, k, v, logit_softcap=softcap, **kw)
     torch.cuda.synchronize()
-    assert flash_ops.launches == before + 1
+    assert flash_ops.launches == before[0] + 1
+    assert flash_ops.tc_launches == before[1] + (dtype == torch.bfloat16)
     assert got.dtype == dtype and got.shape == q.shape
     d = (got.float() - want.float()).abs()
     if dtype == torch.float32:
         assert d.max().item() <= 1e-5
     else:
         assert bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+
+
+# bf16 only (the tensor-core kernel): hd 64 with ragged Sq and Sk, and the
+# llama3.2-3b prefill layer at full size
+TC_FLASH_CASES = [
+    (2, 200, 70, 4, 2, 64, True, None, None),         # Sq > Sk, ragged
+    (1, 100, 257, 8, 2, 64, False, None, None),       # non-causal, ragged Sk
+    (2, 77, 77, 8, 8, 64, True, 16, 30.0),            # window + softcap, ragged
+    (1, 1000, 1000, 16, 4, 64, True, None, None),     # many q tiles, ragged
+    (4, 2048, 2048, 24, 8, 128, True, None, None),    # the main path's shape
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,n_kv,hd,causal,window,softcap", TC_FLASH_CASES)
+def test_tc_flash_attention_matches_plain(dev, B, Sq, Sk, H, n_kv, hd, causal, window,
+                                          softcap):
+    g = torch.Generator(device=dev).manual_seed(Sq * 3 + Sk + hd)
+    q = torch.randn(B, Sq, H, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(B, Sk, n_kv, hd, generator=g, device=dev).bfloat16()
+    kw = dict(causal=causal, window=window)
+    before = flash_ops.tc_launches
+    got = flash_ops.flash_attention(q, k, v, softcap=softcap, **kw)
+    want = flash_ref.attention(q, k, v, logit_softcap=softcap, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.tc_launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
 
 
 @pytest.mark.cuda
@@ -170,6 +201,11 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         flash_ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                                   q.transpose(1, 2))
+    # TMA reads bf16 from 16-byte-aligned bases only
+    flat = torch.zeros(1 + 8 * 4 * 64, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_ops.flash_attention(q, q, q)
 
 
 @pytest.mark.cuda
@@ -178,11 +214,24 @@ def test_prefill_launches_the_kernel_once_per_layer(dev, arch):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     cfg = get_config(arch, reduced=True)
-    before = flash_ops.launches
+    before = flash_ops.launches, flash_ops.tc_launches
     res = serve(arch, reduced=True, batch=2, prompt_len=24, tokens=3, device=dev)
-    assert res.flash_launches == flash_ops.launches - before == cfg.n_layers
+    assert res.flash_launches == flash_ops.launches - before[0] == cfg.n_layers
+    assert flash_ops.tc_launches == before[1]   # f32 weights: the CUDA-core kernel
     assert res.slstm_launches == 0
     assert res.ids.shape == (2, 4) and torch.isfinite(res.last_logits).all()
+
+
+@pytest.mark.cuda
+def test_full_width_bf16_prefill_runs_the_tensor_core_kernel(dev):
+    """llama3.2-3b at its published widths with bf16 weights: every one
+    of its 28 layers' attention goes through the tensor-core kernel."""
+    from repro_torch.launch.serve import serve
+    before = flash_ops.launches, flash_ops.tc_launches
+    res = serve("llama3.2-3b", batch=1, prompt_len=256, tokens=2, device=dev)
+    assert res.flash_launches == 28
+    assert flash_ops.launches - before[0] == flash_ops.tc_launches - before[1] == 28
+    assert res.ids.shape == (1, 3) and torch.isfinite(res.last_logits).all()
 
 
 # B, T, NH, hd: reduced xlstm-1.3b (hd 64) and full width (hd 512)
