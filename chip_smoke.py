@@ -7,8 +7,8 @@ Phases, in order; any failure exits non-zero:
 1. card: the nvidia-smi name and power limit, torch's device name;
 2. build: nvcc builds every kernel from `src/repro_torch/kernels/csrc/`
    (one nvcc per source, all started together), and prints ptxas's
-   registers and spills of the flash-attention kernels (`-Xptxas -v`); the
-   bf16 tensor-core kernel must not spill;
+   registers and spills of the flash-attention kernels and of the slstm
+   kernels (`-Xptxas -v`); neither bf16 tensor-core kernel may spill;
 3. rewafl_select on the card against its plain PyTorch version, bitwise
    (indices, live flags and masks), at S in {100, 1e5, 1e6}, K = 20,
    eps in {0, 0.25}: all available, ~30% unavailable, fewer than K
@@ -26,10 +26,14 @@ Phases, in order; any failure exits non-zero:
    differs), bf16 within one bf16 step (rtol 2**-7, atol 1e-5); bf16 runs
    the tensor-core kernel, f32 the CUDA-core one (counted); slstm against its plain version at B in
    {1, 4}, T in {1, 17, 2048}, (NH, hd) in {(4, 64), (4, 512)}, f32 and
-   bf16, and with input-gate pre-activations near +60 (the stabiliser m):
-   h and the final state within 1e-5 of their scale (at least 1) in f32
-   and within one bf16 step of their scale (2**-7 of max |plain|) in
-   bf16; stat_util against its
+   bf16, and with input-gate pre-activations near +60 (the stabiliser m),
+   and in bf16 at B 16 (two n8 tiles), hd 256 (clusters of 4) and NH 8 at
+   hd 512 (eight clusters of 16, more than the card holds at once): h and
+   the final state within 1e-5 of their scale (at least 1) in f32 and
+   within one bf16 step of their scale (2**-7 of max |plain|) in bf16;
+   bf16 runs the cluster kernel, f32 the cooperative one (counted), and
+   each bf16 shape's cluster size and how many of its clusters fit
+   (cudaOccupancyMaxActiveClusters) are printed; stat_util against its
    plain version at (20, 32), (100, 17) and (1e6, 32), f32 and bf16
    losses, within rtol 1e-5;
 6. times of each kernel, its plain version and one library call where
@@ -38,7 +42,7 @@ Phases, in order; any failure exits non-zero:
    warm-up; slstm 2 calls, median of 10), and the kernel's time per call
    issued from Python; beside the least time the card could take for the
    work; for slstm also the floor of its 2,048 sequential steps, the
-   kernel's per-step barrier alone on the same grid;
+   exchange of h between a cluster's blocks alone on the same clusters;
 7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after (stat_util once a round); then
@@ -50,12 +54,13 @@ Phases, in order; any failure exits non-zero:
    one warm-up call, with every kernel's launch count read just after,
    then served again for the median and spread of its times:
    llama3.2-3b (28 layers, d 3072; flash_attention's tensor-core kernel
-   once per layer, 5 serves) and xlstm-1.3b (48 layers, d 2048; slstm once per sLSTM layer,
-   6, 3 serves); then reduced llama3.2-3b, gemma2-27b and xlstm-1.3b
-   served on the card and on the CPU from the same weights, f32 and bf16:
-   greedy ids equal, last logits within 5e-4 of their scale with f32
-   weights and 3e-2 with bf16 weights (f32 weights run the CUDA-core
-   flash kernel, bf16 the tensor-core one);
+   once per layer, 5 serves) and xlstm-1.3b (48 layers, d 2048; slstm's
+   cluster kernel once per sLSTM layer, 6, 3 serves); then reduced
+   llama3.2-3b, gemma2-27b and xlstm-1.3b served on the card and on the
+   CPU from the same weights, f32 and bf16: greedy ids equal, last logits
+   within 5e-4 of their scale with f32 weights and 3e-2 with bf16 weights
+   (f32 weights run the CUDA-core flash kernel and the cooperative slstm
+   kernel, bf16 the tensor-core ones);
 9. one JSON line of kernels, the card's name and power limit, and last
    `{"ok": true, "device": {...}}`.
 
@@ -74,6 +79,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -450,9 +456,19 @@ def phase_slstm(dev) -> float:
     cases = [(B, T, NH, hd, dt, 0.0) for B in (1, 4) for T in (1, 17, 2048)
              for NH, hd in ((4, 64), (4, 512)) for dt in (torch.float32, torch.bfloat16)]
     cases += [(4, 2048, 4, 512, torch.bfloat16, 60.0), (4, 17, 4, 64, torch.float32, 60.0)]
+    # the bf16 cluster kernel: two n8 tiles, clusters of 4, eight clusters
+    cases += [(16, 64, 4, 512, torch.bfloat16, 0.0), (4, 256, 4, 256, torch.bfloat16, 0.0),
+              (4, 128, 8, 512, torch.bfloat16, 0.0)]
+    for B, NH, hd in sorted({(B, NH, hd) for B, _, NH, hd, dt, _ in cases
+                             if dt == torch.bfloat16}):
+        cl, J = ops.tc_plan(B, hd)
+        print(f"slstm bf16 B={B} NH={NH} hd={hd}: clusters of {cl} blocks (J {J}), "
+              f"{NH} clusters; cudaOccupancyMaxActiveClusters "
+              f"{ops.max_active_clusters(B, NH, hd, dev)}", flush=True)
     main_err = None
     for i, (B, T, NH, hd, dt, shift) in enumerate(cases):
         x, r = slstm_inputs(B, T, NH, hd, dt, 400 + i, dev, shift)
+        tc0 = ops.tc_launches
         h, st = ops.slstm_scan(x, r)
         want_h, want_st = ref.slstm_scan(x, r)
         torch.cuda.synchronize()
@@ -460,6 +476,8 @@ def phase_slstm(dev) -> float:
             f" input gates +{shift:g}" if shift else "")
         check(h.dtype == dt and h.shape == (B, T, NH, hd), f"slstm {name}: got {h.dtype} "
               f"{tuple(h.shape)}")
+        check(ops.tc_launches - tc0 == int(dt == torch.bfloat16),
+              f"slstm {name}: the cluster kernel ran {ops.tc_launches - tc0} times")
         errs = []
         for what, got, want in [("h", h, want_h.to(dt))] + list(zip("hcnm", st, want_st)):
             d = (got.float() - want.float()).abs().max().item()
@@ -480,7 +498,8 @@ def phase_slstm(dev) -> float:
 def time_slstm(dev) -> dict:
     """Times at the main path's call: one xlstm-1.3b prefill layer, B 4,
     T 2048, NH 4, hd 512, bf16; and the floor of its 2,048 steps, the
-    per-step barrier alone on the kernel's grid."""
+    exchange of h between a cluster's blocks alone, on the kernel's
+    clusters."""
     from repro_torch.kernels.slstm import ops, ref
     B, T, NH, hd = (MAIN_SLSTM[k] for k in ("B", "T", "NH", "hd"))
     x, r = slstm_inputs(B, T, NH, hd, torch.bfloat16, 7, dev)
@@ -562,19 +581,24 @@ def _ops_modules():
             "flash_attention": flash_attention, "slstm": slstm, "stat_util": stat_util}
 
 
+TC_KERNELS = ("flash_attention", "slstm")   # those with a bf16 tensor-core kernel
+
+
 def reset_launches() -> None:
-    for m in _ops_modules().values():
+    for k, m in _ops_modules().items():
         m.launches = 0
-    _ops_modules()["flash_attention"].tc_launches = 0
+        if k in TC_KERNELS:
+            m.tc_launches = 0
 
 
 def read_launches() -> dict:
     return {k: m.launches for k, m in _ops_modules().items()}
 
 
-def read_tc_launches() -> int:
-    """Launches of flash_attention's bf16 tensor-core kernel."""
-    return _ops_modules()["flash_attention"].tc_launches
+def read_tc_launches() -> dict:
+    """Launches of the bf16 tensor-core kernels: flash_attention's (TMA,
+    wgmma) and slstm's (clusters, mma.sync)."""
+    return {k: _ops_modules()[k].tc_launches for k in TC_KERNELS}
 
 
 def phase_main_path(dev):
@@ -707,9 +731,10 @@ def phase_serve(dev, arch: str, cfg, params):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {k: prefill_launches(cfg).get(k, 0) for k in counts}
     check(counts == want, f"{arch}: one prefill launched {counts}, not {want}")
-    # bf16 weights: every attention launch is the tensor-core kernel's
-    check(tc == counts["flash_attention"],
-          f"{arch}: {tc} of {counts['flash_attention']} flash launches on the tensor cores")
+    # bf16 weights: every attention and sLSTM launch is a tensor-core kernel's
+    for k in TC_KERNELS:
+        check(tc[k] == counts[k], f"{arch}: {tc[k]} of {counts[k]} {k} launches on the "
+                                  "tensor cores")
     check((res.flash_launches, res.slstm_launches)
           == (counts["flash_attention"], counts["slstm"]),
           f"{arch}: the serve counted {res.flash_launches} flash and "
@@ -739,8 +764,9 @@ def phase_serve(dev, arch: str, cfg, params):
           f"{out['decode_ms_per_token']:.2f} ms/token (range "
           f"{spread['decode_ms_per_token'][0]:.2f}-{spread['decode_ms_per_token'][1]:.2f}; "
           f"{out['decode_tok_per_s']:.1f} tok/s over {SERVE_B} requests), {SERVE_TOKENS} "
-          f"tokens decoded; launches {counts}; peak {peak_gb:.2f} GB", flush=True)
-    return counts, out
+          f"tokens decoded; launches {counts}, on the tensor cores {tc}; peak "
+          f"{peak_gb:.2f} GB", flush=True)
+    return counts, tc, out
 
 
 # last logits' error relative to their scale, card against CPU, by weights'
@@ -772,15 +798,16 @@ def phase_serve_agreement(dev) -> None:
             cpu = serve(arch, device="cpu", params=params, **kw)
             tc0 = read_tc_launches()
             card = serve(arch, device=dev, params=_to(params, dev), **kw)
+            tc = {k: v - tc0[k] for k, v in read_tc_launches().items()}
             name = f"{arch} reduced {dt}"
             want = prefill_launches(cfg)
             got = {k: v for k, v in (("flash_attention", card.flash_launches),
                                      ("slstm", card.slstm_launches)) if v or k in want}
             check(got == want, f"{name}: launches on the card {got}, not {want}")
-            tc_want = card.flash_launches if dt == "bfloat16" else 0
-            check(read_tc_launches() - tc0 == tc_want,
-                  f"{name}: {read_tc_launches() - tc0} tensor-core flash launches, "
-                  f"not {tc_want}")
+            bf16 = dt == "bfloat16"
+            tc_want = {"flash_attention": card.flash_launches if bf16 else 0,
+                       "slstm": card.slstm_launches if bf16 else 0}
+            check(tc == tc_want, f"{name}: tensor-core launches {tc}, not {tc_want}")
             check(torch.equal(cpu.ids, card.ids),
                   f"{name}: greedy ids differ: {cpu.ids.tolist()} vs {card.ids.tolist()}")
             scale = cpu.last_logits.abs().max().item()
@@ -807,6 +834,10 @@ def _device_kernels(prof):
     return ev, sum(e.self_device_time_total for e in ev) / 1e6
 
 
+# fragments of the serving kernels' names in a profile
+PORT_KERNEL_KEYS = ("slstm", "flash_fwd")
+
+
 def phase_profile_serve(dev, arch: str, params, main: dict) -> None:
     """`--profile`: device time by kernel of one full-width prefill, and of
     the same prefill followed by 8 decode steps; the decode's device time
@@ -828,7 +859,9 @@ def phase_profile_serve(dev, arch: str, params, main: dict) -> None:
           f"{main['decode_ms_per_token']:.2f} ms unprofiled wall "
           f"({100 * step_s * 1e3 / main['decode_ms_per_token']:.1f}%)", flush=True)
     for n, label in ((0, "prefill"), (8, "prefill+8 decode")):
-        for e in top[n][:10]:
+        # the ten largest, and the port's own kernels wherever they rank
+        own = [e for e in top[n][10:] if any(k in e.key for k in PORT_KERNEL_KEYS)]
+        for e in top[n][:10] + own:
             print(f"profile serve {arch} {label}: {e.self_device_time_total / 1e3:9.2f} ms "
                   f"{e.count:6d} calls  {e.key[:80]}", flush=True)
 
@@ -862,22 +895,40 @@ def phase_profile(dev) -> None:
 
 # --------------------------------------------------------------------- main
 
+# the bf16 tensor-core kernels (mangled-name fragment) and the head widths
+# whose ptxas lines are printed: the main path's and its reduced config's
+TC_FUNCS = {"flash_attention": ("flash_fwd_tc_kernel", None),
+            "slstm": ("slstm_tc_kernel", {"64", "256", "512"})}
+
+
 def print_ptxas(name: str, report: str) -> None:
-    """Registers and spills of each function of kernel `name`, from
-    ptxas; fails if the bf16 tensor-core kernel spills."""
+    """Registers and spills of the functions of kernel `name`, from ptxas
+    (of the slstm cluster kernel, compiled for every hd = 16·KS it takes,
+    only hd 64, 256 and 512 and a summary); fails if a bf16 tensor-core
+    kernel spills."""
     lines = report.splitlines()
+    tc_fn, shown = TC_FUNCS[name]
+    n_tc, max_regs = 0, 0
     for i, line in enumerate(lines):
         if "Function properties for" not in line:
             continue
         fn = line.split("Function properties for")[-1].strip()
-        kind = ("tensor-core bf16" if "flash_fwd_tc_kernel" in fn else "CUDA-core f32")
-        hd = fn.split("ILi")[1].split("E")[0] if "ILi" in fn else "?"
+        tc = tc_fn in fn
+        kind = "tensor-core bf16" if tc else re.search(r"\d([a-z_]+kernel)", fn).group(1)
+        arg = fn.split("ILi")[1].split("E")[0] if "ILi" in fn else "?"
+        hd = str(16 * int(arg)) if tc and name == "slstm" else arg   # templated on hd / 16
         used = next((x.split(":")[-1].strip() for x in lines[i + 1:i + 3] if "Used" in x), "?")
         spills = lines[i + 1].strip()
-        print(f"ptxas {name} {kind} hd {hd}: {used}; {spills}", flush=True)
-        if "flash_fwd_tc_kernel" in fn:
+        if tc:
             check(" 0 bytes spill stores, 0 bytes spill loads" in " " + spills,
-                  f"the tensor-core flash kernel spills at hd {hd}: {spills}")
+                  f"the tensor-core {name} kernel spills at hd {hd}: {spills}")
+            n_tc += 1
+            max_regs = max(max_regs, int(used.split()[1]) if used.startswith("Used") else 0)
+        if not tc or shown is None or hd in shown:
+            print(f"ptxas {name} {kind} hd {hd}: {used}; {spills}", flush=True)
+    check(n_tc > 0, f"ptxas reported no tensor-core {name} kernel")
+    print(f"ptxas {name}: {n_tc} tensor-core instantiations, at most {max_regs} "
+          "registers, none spills", flush=True)
 
 
 def main() -> None:
@@ -900,7 +951,8 @@ def main() -> None:
     t0 = time.time()
     libs = _build.build_all()
     print(f"build: {', '.join(sorted(libs))} in {time.time() - t0:.1f} s", flush=True)
-    print_ptxas("flash_attention", _build.ptxas_report("flash_attention"))
+    for k in TC_KERNELS:
+        print_ptxas(k, _build.ptxas_report(k))
 
     phase_select(dev)   # bitwise: any difference has failed the run
     fed_err = phase_fedavg(dev)
@@ -914,7 +966,7 @@ def main() -> None:
             ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
             ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
         extra = (f", padded rows {v['padded_ms']:.5f} ms" if "padded_ms" in v else
-                 f", barrier floor {v['barrier_floor_ms']:.5f} ms"
+                 f", step floor {v['barrier_floor_ms']:.5f} ms"
                  if "barrier_floor_ms" in v else "")
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.5f} ms"
         print(f"time {k}: kernel {v['ms']:.5f} ms{extra} (issued from Python "
@@ -928,10 +980,12 @@ def main() -> None:
     profile = "--profile" in sys.argv[1:]
     if profile:
         phase_profile(dev)
+    tc_counts = {}
     for arch in SERVE_REPEATS:   # the serving paths: flash_attention, slstm
         cfg, params = serve_params(dev, arch)
-        serve_counts, serve_out = phase_serve(dev, arch, cfg, params)
+        serve_counts, serve_tc, serve_out = phase_serve(dev, arch, cfg, params)
         counts.update({k: serve_counts[k] for k in prefill_launches(cfg)})
+        tc_counts.update({k: serve_tc[k] for k in prefill_launches(cfg)})
         if profile:
             phase_profile_serve(dev, arch, params, serve_out)
         del params
@@ -954,7 +1008,8 @@ def main() -> None:
                       "src/repro/kernels/stat_util/stat_util.py:28", stat_err, "rtol 1e-5"),
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
-                    launches=counts[k], max_abs_err=err, **times[k], check=chk)
+                    launches=counts[k], max_abs_err=err, **times[k], check=chk,
+                    **({"tc_launches": tc_counts[k]} if k in TC_KERNELS else {}))
                for k, (src, rep, err, chk) in meta.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

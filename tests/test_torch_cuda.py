@@ -11,7 +11,8 @@ result; bf16 runs the tensor-core kernel, f32 the CUDA-core one); `slstm` within
 in f32 (another sum order; m and n grow to 10-60 with large input gates)
 and one bf16 step of the scale (2**-7 of max |plain|) in bf16, on h and
 on the final state (a product rounded to bf16 on the other side of a tie
-moves the steps after it); `stat_util` within rtol 1e-5 (another sum order).
+moves the steps after it; bf16 runs the cluster kernel, f32 the
+cooperative one); `stat_util` within rtol 1e-5 (another sum order).
 """
 import numpy as np
 import pytest
@@ -261,16 +262,48 @@ def _assert_slstm_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_slstm_matches_plain(dev, B, T, NH, hd, dtype):
     x, r = _slstm_inputs(B, T, NH, hd, dtype, dev, B * T + hd)
-    before = slstm_ops.launches
+    before = slstm_ops.launches, slstm_ops.tc_launches
     h, st = slstm_ops.slstm_scan(x, r)
     want_h, want_st = slstm_ref.slstm_scan(x, r)
     torch.cuda.synchronize()
-    assert slstm_ops.launches == before + 1
+    assert slstm_ops.launches == before[0] + 1
+    assert slstm_ops.tc_launches == before[1] + (dtype == torch.bfloat16)
     assert h.dtype == dtype and h.shape == (B, T, NH, hd)
     _assert_slstm_close(h, want_h.to(dtype), dtype)
     for got, want in zip(st, want_st):
         assert got.dtype == torch.float32 and got.shape == (B, NH, hd)
         _assert_slstm_close(got, want, dtype)
+
+
+# bf16 only (the cluster kernel): two n8 tiles (B 16), clusters of 4 (hd
+# 256), eight clusters of 16 (NH 8 at hd 512, more than the card holds at
+# once; B 16 too), clusters of 16 at hd 384 with B 9, hd 48 (one block, 12
+# m-tiles over 8 warps), and the xlstm-1.3b prefill layer
+TC_SLSTM_CASES = [(16, 64, 4, 512), (4, 256, 4, 256), (4, 128, 8, 512), (16, 3, 8, 512),
+                  (9, 20, 2, 384), (3, 12, 1, 48), (4, 2048, 4, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,NH,hd", TC_SLSTM_CASES)
+def test_tc_slstm_matches_plain(dev, B, T, NH, hd):
+    x, r = _slstm_inputs(B, T, NH, hd, torch.bfloat16, dev, B * T + hd + 1)
+    before = slstm_ops.tc_launches
+    h, st = slstm_ops.slstm_scan(x, r)
+    want_h, want_st = slstm_ref.slstm_scan(x, r)
+    torch.cuda.synchronize()
+    assert slstm_ops.tc_launches == before + 1
+    assert h.dtype == torch.bfloat16 and h.shape == (B, T, NH, hd)
+    _assert_slstm_close(h, want_h.bfloat16(), torch.bfloat16)
+    for got, want in zip(st, want_st):
+        _assert_slstm_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_tc_slstm_clusters_fit(dev):
+    """At least one cluster of each plan fits; xlstm-1.3b's clusters of 16
+    need the non-portable cluster size."""
+    for hd in (64, 256, 512):
+        assert slstm_ops.max_active_clusters(4, 4, hd, dev) >= 1
 
 
 @pytest.mark.cuda
@@ -299,9 +332,23 @@ def test_slstm_rejects_what_the_kernel_does_not_take(dev):
         slstm_ops.slstm_scan(x, r.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         slstm_ops.slstm_scan(x.transpose(0, 1), r)
-    x, r = _slstm_inputs(16, 3, 8, 512, torch.bfloat16, dev, 0)
-    with pytest.raises(ValueError, match="fits"):      # 256 blocks at least
+    # f32 runs the cooperative kernel: all 256 blocks (at least) at once
+    x, r = _slstm_inputs(16, 3, 8, 512, torch.float32, dev, 0)
+    with pytest.raises(ValueError, match="fits"):
         slstm_ops.slstm_scan(x, r)
+    # bf16 runs the cluster kernel: hd a multiple of 16 up to 512, with a
+    # plan that keeps R in registers, and a 16-byte-aligned x_pre
+    for hd in (1024, 40):
+        x, r = _slstm_inputs(1, 3, 1, hd, torch.bfloat16, dev, 0)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            slstm_ops.slstm_scan(x, r)
+    x, r = _slstm_inputs(1, 3, 1, 176, torch.bfloat16, dev, 0)
+    with pytest.raises(ValueError, match="registers"):
+        slstm_ops.slstm_scan(x, r)
+    x, r = _slstm_inputs(2, 3, 4, 64, torch.bfloat16, dev, 0)
+    flat = torch.zeros(1 + x.numel(), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        slstm_ops.slstm_scan(flat[1:].view(x.shape), r)
     x, r = _slstm_inputs(1, 3, 1, 2048, torch.float32, dev, 0)
     with pytest.raises(ValueError, match="resident"):  # 512 KB of R a block
         slstm_ops.slstm_scan(x, r)
@@ -331,10 +378,24 @@ def test_prefill_launches_slstm_once_per_slstm_layer(dev, param_dtype):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     cfg = get_config("xlstm-1.3b", reduced=True)
-    before = slstm_ops.launches, flash_ops.launches
+    before = slstm_ops.launches, flash_ops.launches, slstm_ops.tc_launches
     res = serve("xlstm-1.3b", reduced=True, batch=2, prompt_len=64, tokens=3, device=dev,
                 param_dtype=param_dtype)
     n_slstm = cfg.n_layers // cfg.slstm_group
     assert res.slstm_launches == slstm_ops.launches - before[0] == n_slstm
     assert res.flash_launches == flash_ops.launches - before[1] == 0
+    # bf16 weights: the cluster kernel; f32: the cooperative one
+    assert slstm_ops.tc_launches - before[2] == (n_slstm if param_dtype == "bfloat16" else 0)
     assert res.ids.shape == (2, 4) and torch.isfinite(res.last_logits).all()
+
+
+@pytest.mark.cuda
+def test_full_width_bf16_xlstm_prefill_runs_the_cluster_kernel(dev):
+    """xlstm-1.3b at its published widths with bf16 weights: each of its 6
+    sLSTM layers (hd 512) goes through the cluster kernel."""
+    from repro_torch.launch.serve import serve
+    before = slstm_ops.launches, slstm_ops.tc_launches
+    res = serve("xlstm-1.3b", batch=1, prompt_len=128, tokens=2, device=dev)
+    assert res.slstm_launches == 6
+    assert slstm_ops.launches - before[0] == slstm_ops.tc_launches - before[1] == 6
+    assert res.ids.shape == (1, 3) and torch.isfinite(res.last_logits).all()

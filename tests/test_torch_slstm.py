@@ -11,6 +11,16 @@ for a CPU tensor) against
   weights;
 - the model cell (`_slstm_cell` scanned over time) with bf16 weights.
 
+The bf16 CUDA kernel's decomposition (one thread-block cluster a head,
+block rank r owning hidden units r·J .. r·J + J − 1, the product
+D = Rᵀ hᵀ in k-steps of 16 summed in four chains, then the cell, h
+reassembled from the blocks) is emulated here in PyTorch
+(`_emulate_tc_kernel` below; it is not on the package's path) at the
+launch plan `ops.tc_plan` gives, and held against the Pallas kernel in
+interpret mode with f32 weights (atol 2e-5) and against the model cell
+with bf16 weights (2**-7 of scale), at hd 64 (one block a head), 256
+(clusters of 4) and 512 (clusters of 16, B 9: two n8 tiles).
+
 With bf16 weights h is rounded to bf16 before each product and the product
 is rounded to bf16, on both sides. Each step's product agrees bitwise, but
 a last-bit f32 difference in tanh or exp can flip the bf16 rounding of one
@@ -149,3 +159,100 @@ def test_block_split(B, NH, hd, J):
 def test_block_split_raises_when_no_grid_fits():
     with pytest.raises(ValueError, match="fits"):
         ops.pick_units(16, 4, 4096, 132)
+
+
+# ------------------------------------------- the bf16 cluster kernel's plan
+
+@pytest.mark.parametrize("B", [1, 4, 9, 16])
+@pytest.mark.parametrize("hd,CL,J", [(32, 1, 32), (64, 1, 64), (128, 1, 128), (256, 4, 64),
+                                     (512, 16, 32)])
+def test_tc_plan(B, hd, CL, J):
+    """One block a head up to hd 128; R^T's share a warp (ceil(J/32)
+    m-tiles x hd/16 k-steps) stays within 32 fragments, 128 registers a
+    thread: hd 256 takes clusters of 4, hd 512 of 16 (xlstm-1.3b)."""
+    assert ops.tc_plan(B, hd) == (CL, J)
+    frags = -(-J // 32) * (hd // 16)
+    assert CL * J == hd and J % 8 == 0 and frags <= ops.TC_MAX_FRAGS
+
+
+@pytest.mark.parametrize("B,hd,match", [(4, 1024, "multiples of 16"),
+                                        (4, 40, "multiples of 16"),
+                                        (4, 176, "keeps R in registers"),
+                                        (17, 512, "batch"), (0, 64, "batch")])
+def test_tc_plan_raises_where_nothing_fits(B, hd, match):
+    with pytest.raises(ValueError, match=match):
+        ops.tc_plan(B, hd)
+
+
+def _emulate_tc_kernel(x_pre, r, chains=4):
+    """The bf16 cluster kernel's arithmetic in PyTorch, block by block:
+    x_pre (B, T, NH, 4hd) and r (NH, hd, 4hd) of one dtype; returns h
+    (B, T, NH, hd) in x_pre's dtype and the final state, f32."""
+    B, T, NH, hd4 = x_pre.shape
+    hd = hd4 // 4
+    CL, J = ops.tc_plan(B, hd)
+    mpw = -(-J // 32)                         # m-tiles a warp
+    ch = 1 if mpw >= 4 else chains // mpw     # accumulator chains a tile
+    rdt = r.dtype
+    h, c, n, m = ref.init_state(B, NH, hd, "cpu")
+    out = torch.empty((B, T, NH, hd), dtype=x_pre.dtype)
+    for t in range(T):
+        hb = h.to(rdt).float()                # h_{t-1} in the blocks' buffers
+        new = [torch.empty((B, NH, hd)) for _ in range(4)]
+        for head in range(NH):
+            for rank in range(CL):
+                units = torch.arange(rank * J, (rank + 1) * J)
+                cols = torch.cat([g * hd + units for g in range(4)])   # rows of D
+                a = r[head][:, cols].float()                           # R^T's rows, (hd, 4J)
+                acc = [torch.zeros((B, 4 * J)) for _ in range(ch)]
+                for s in range(hd // 16):
+                    k = slice(16 * s, 16 * s + 16)
+                    acc[s % ch] = acc[s % ch] + hb[:, head, k] @ a[k]
+                d = acc[0]
+                for extra in acc[1:]:
+                    d = d + extra
+                pre = x_pre[:, t, head, cols].float() + d.to(rdt).float()
+                zp, ip, fp, op = pre.split(J, dim=-1)
+                mu = m[:, head, units]
+                logf = torch.nn.functional.logsigmoid(fp)
+                m_new = torch.maximum(logf + mu, ip)
+                fw, iw = torch.exp(logf + mu - m_new), torch.exp(ip - m_new)
+                cu = fw * c[:, head, units] + iw * torch.tanh(zp)
+                nu = fw * n[:, head, units] + iw
+                hu = torch.sigmoid(op) * cu / nu.clamp_min(1e-6)
+                for leaf, v in zip(new, (hu, cu, nu, m_new)):
+                    leaf[:, head, units] = v
+        h, c, n, m = new                      # h reassembled from the blocks
+        out[:, t] = h.to(x_pre.dtype)
+    return out, (h, c, n, m)
+
+
+@pytest.mark.parametrize("B,T,NH,hd", [(2, 8, 2, 64), (3, 6, 1, 256), (9, 5, 1, 512)])
+def test_tc_emulation_matches_pallas_kernel_f32(B, T, NH, hd):
+    xp, r = _inputs(B, T, NH, hd, B + T + hd, r_scale=0.2 * 8 / np.sqrt(hd))
+    h, st = _emulate_tc_kernel(_t(xp).reshape(B, T, NH, 4 * hd), _t(r))
+    want = j_kernel.slstm_scan(jnp.asarray(xp), jnp.asarray(r), nh=NH, interpret=True)
+    np.testing.assert_allclose(h.reshape(B, T, NH * hd).numpy(), np.asarray(want),
+                               atol=F32_ATOL, rtol=0)
+    assert torch.equal(st[0], h[:, -1])
+
+
+@pytest.mark.parametrize("B,T,NH,hd", [(2, 32, 4, 64), (3, 16, 2, 256), (9, 8, 1, 512)])
+def test_tc_emulation_matches_model_cell_bf16(B, T, NH, hd):
+    xp, r = _inputs(B, T, NH, hd, 11 + hd)
+    jxp, jr = jnp.asarray(xp).astype(jnp.bfloat16), jnp.asarray(r).astype(jnp.bfloat16)
+    sd = jx.slstm_dims(NH * hd, NH)
+
+    def step(st, xt):
+        h, new = jx._slstm_cell({"r": jr}, xt, st, sd)
+        return new, h
+
+    jst, jh = jax.lax.scan(step, jx.init_slstm_state(B, sd), jxp.swapaxes(0, 1))
+    h, st = _emulate_tc_kernel(_t(jxp, "bfloat16").reshape(B, T, NH, 4 * hd),
+                               _t(jr, "bfloat16"))
+    assert h.dtype == torch.bfloat16
+    _close_to_scale(h.float().reshape(B, T, NH * hd).numpy(),
+                    np.asarray(jh.swapaxes(0, 1).astype(jnp.bfloat16).astype(jnp.float32)),
+                    BF16_REL)
+    for got, want in zip(st, jst):
+        _close_to_scale(got.numpy(), want, BF16_REL)
