@@ -10,10 +10,14 @@ Phases, in order; any failure exits non-zero:
    registers and spills of the flash-attention kernels and of the slstm
    kernels (`-Xptxas -v`); neither bf16 tensor-core kernel may spill;
 3. rewafl_select on the card against its plain PyTorch version, bitwise
-   (indices, live flags and masks), at S in {100, 1e5, 1e6}, K = 20,
-   eps in {0, 0.25}: all available, ~30% unavailable, fewer than K
-   available, and a block of equal utilities; and at S in {100, 1e5}
-   with exponents (alpha, beta) other than 1;
+   (indices, live flags and masks), at S in {1, 100, 2047, 2048, 2049,
+   8192, 8193, 1e5, 1e6}, K in {1, 20, 256, 257, S} (K <= S; K = S up to
+   1e5), eps in {0, 0.1, 0.5}: all available, ~30% unavailable, fewer
+   than K available, none available, a block of equal utilities, NaN
+   utilities, and -0 and +0 utilities; at S in {100, 1e5} with exponents
+   (alpha, beta) other than 1; and which kernels a call runs (the
+   wrapper's plan, and the names torch.profiler sees): `select_one` alone
+   at S 100, `select_tiles` and `select_merge` at S 1e6;
 4. fedavg against its plain version: (20, 206,922) f32, contiguous as
    the round keeps it and with rows padded to a multiple of 4 (the
    kernel's vector path), a ragged unaligned stack, and bf16; f32 within
@@ -28,7 +32,9 @@ Phases, in order; any failure exits non-zero:
    {1, 4}, T in {1, 17, 2048}, (NH, hd) in {(4, 64), (4, 512)}, f32 and
    bf16, and with input-gate pre-activations near +60 (the stabiliser m),
    and in bf16 at B 16 (two n8 tiles), hd 256 (clusters of 4) and NH 8 at
-   hd 512 (eight clusters of 16, more than the card holds at once): h and
+   hd 512 (eight clusters of 16, more than the card holds at once), and
+   at B 17 and 32, f32 and bf16 (two launches, one a slice of at most 16
+   rows, counted): h and
    the final state within 1e-5 of their scale (at least 1) in f32 and
    within one bf16 step of their scale (2**-7 of max |plain|) in bf16;
    bf16 runs the cluster kernel, f32 the cooperative one (counted), and
@@ -41,8 +47,12 @@ Phases, in order; any failure exits non-zero:
    events around a replayed CUDA graph of 10 calls (median of 25, after
    warm-up; slstm 2 calls, median of 10), and the kernel's time per call
    issued from Python; beside the least time the card could take for the
-   work; for slstm also the floor of its 2,048 sequential steps, the
-   exchange of h between a cluster's blocks alone on the same clusters;
+   work and the launch floor, the time of the smallest PyTorch kernel on
+   the same timer (`zero_()` on one element, `launch_floor_ms`); for
+   slstm also the floor of its 2,048 sequential steps, the exchange of h
+   between a cluster's blocks alone on the same clusters; rewafl_select
+   at S 100 and 1e6, and at S in {100, 128, 192, 256, 512, 1024} with
+   the keys ranked by counting against the radix select;
 7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after (stat_util once a round); then
@@ -56,7 +66,8 @@ Phases, in order; any failure exits non-zero:
    llama3.2-3b (28 layers, d 3072; flash_attention's tensor-core kernel
    once per layer, 5 serves) and xlstm-1.3b (48 layers, d 2048; slstm's
    cluster kernel once per sLSTM layer, 6, 3 serves); then reduced
-   llama3.2-3b, gemma2-27b and xlstm-1.3b served on the card and on the
+   llama3.2-3b, gemma2-27b and xlstm-1.3b (at batch 2, and xlstm-1.3b at
+   batch 17 too: two slstm launches a layer) served on the card and on the
    CPU from the same weights, f32 and bf16: greedy ids equal, last logits
    within 5e-4 of their scale with f32 weights and 3e-2 with bf16 weights
    (f32 weights run the CUDA-core flash kernel and the cooperative slstm
@@ -164,9 +175,24 @@ def bound(n_bytes: float, n_flops: float, flop_per_s: float = F32_FLOP_PER_S):
 
 # ------------------------------------------------------------ rewafl_select
 
-def select_inputs(S: int, case: str, seed: int, dev):
+SELECT_CASES = ("all", "unavail30", "under_k", "none", "ties", "nan", "negzero")
+
+
+def select_grid():
+    """(S, K) of the bitwise check: S up to 1e6, around 2,048 and around
+    the one-block limit and stage-1 tile (8,192); K 1, 20, 256, 257 and S
+    (K = S up to S 1e5)."""
+    grid = []
+    for S in (1, 100, 2047, 2048, 2049, 8192, 8193, 100_000, 1_000_000):
+        ks = {1, MAIN_K, 256, 257} | ({S} if S <= 100_000 else set())
+        grid += [(S, K) for K in sorted(ks) if K <= S]
+    return grid
+
+
+def select_inputs(S: int, case: str, seed: int, dev, K: int = MAIN_K):
     """Leaves (avail, UtilityInputs, rnd) on the card in the ranges a
-    fleet produces; `case` picks the availability pattern or a tie block."""
+    fleet produces; `case` picks the availability pattern, a tie block,
+    NaN utilities or signed zeros."""
     from repro_torch.core.utility import UtilityInputs
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -181,13 +207,21 @@ def select_inputs(S: int, case: str, seed: int, dev):
         avail = u(0.0, 1.0) >= 0.3
     elif case == "under_k":
         avail = torch.zeros_like(avail)
-        avail[perm[:MAIN_K // 2]] = True
+        avail[perm[:K // 2]] = True
+    elif case == "none":
+        avail = torch.zeros_like(avail)
     elif case == "ties":
         # 2K devices scattered over the fleet (and over stage-1 tiles)
         # share the largest utility and the largest explore draw
-        blk = perm[:min(S, 2 * MAIN_K)]
+        blk = perm[:min(S, 2 * K)]
         stat[blk], t[blk], e[blk] = 1e4, 1.0, 10.0
         residual[blk], e0[blk], rnd[blk] = 6e4, 100.0, 0.999
+    elif case == "nan":       # NaN utilities rank first and are dead
+        stat[perm[:max(1, S // 10)]] = float("nan")
+    elif case == "negzero":   # -0 and +0 utilities tie: the lower index first
+        blk = perm[:max(1, S // 4)]
+        stat[blk[::2]] = -0.0
+        e[blk[1::2]] = 1e9    # e above the headroom: utility +0
     return avail, UtilityInputs(stat, t, e, residual, e0), rnd
 
 
@@ -195,22 +229,24 @@ def phase_select(dev) -> None:
     from repro_torch.core.selection import _explore_slots
     from repro_torch.kernels.rewafl_select import ops, ref
     n = 0
-    for S in (100, 100_000, 1_000_000):
-        for eps in (0.0, 0.25):
-            for ci, case in enumerate(("all", "unavail30", "under_k", "ties")):
-                avail, ui, rnd = select_inputs(S, case, 1000 * ci + S % 997, dev)
-                kx = _explore_slots(eps, MAIN_K)
-                kw = dict(k_exploit=MAIN_K - kx, k_explore=kx, T_round=60.0,
-                          alpha=1.0, beta=1.0)
+    for S, K in select_grid():
+        for eps in (0.0, 0.1, 0.5):
+            kx = _explore_slots(eps, K)
+            kw = dict(k_exploit=K - kx, k_explore=kx, T_round=60.0, alpha=1.0, beta=1.0)
+            for ci, case in enumerate(SELECT_CASES):
+                avail, ui, rnd = select_inputs(S, case, 1000 * ci + S % 997 + K, dev, K)
                 idx, live = ops.select_topk(avail, ui, rnd, **kw)
                 ridx, rlive = ref.select_topk(avail, ui, rnd, **kw)
                 torch.cuda.synchronize()
                 ok = (torch.equal(idx, ridx) and torch.equal(live, rlive)
                       and torch.equal(ops.mask_from_slots(idx, live, S),
                                       ops.mask_from_slots(ridx, rlive, S)))
-                check(ok, f"rewafl_select S={S} eps={eps} case={case}: "
-                          f"kernel {idx.tolist()}/{live.tolist()} vs plain "
-                          f"{ridx.tolist()}/{rlive.tolist()}")
+                if not ok:
+                    bad = torch.nonzero((idx != ridx) | (live != rlive)).flatten()[:8]
+                    fail(f"rewafl_select S={S} K={K} eps={eps} case={case}: slots "
+                         f"{bad.tolist()} differ: kernel {idx[bad].tolist()}/"
+                         f"{live[bad].tolist()} vs plain {ridx[bad].tolist()}/"
+                         f"{rlive[bad].tolist()}")
                 n += 1
     # PyTorch's tensor ** scalar special-cases some exponents (2 as x*x,
     # 0.5 as sqrt); the kernel must follow it
@@ -231,6 +267,37 @@ def phase_select(dev) -> None:
                 n += 1
     print(f"rewafl_select: {n} cases bitwise equal to the plain version",
           flush=True)
+    # the kernels one call runs: the wrapper's plan (no scratch: one block
+    # holds the fleet) and the names the profiler sees; one block up to
+    # 8,192 devices, per-tile candidates and one merging block above
+    lib = ops._lib()
+    for S, want in ((MAIN_S, {"select_one"}),
+                    (1_000_000, {"select_tiles", "select_merge"})):
+        one_block = lib.rewafl_select_scratch(S, MAIN_K, 0) == 0
+        check(one_block == (S <= 8192),
+              f"rewafl_select S={S}: plan is {'one' if one_block else 'two'} launches")
+        names = select_kernels(dev, S)
+        check(names == want, f"rewafl_select S={S}: calls ran the kernels "
+                             f"{sorted(names)}, not {sorted(want)}")
+        print(f"rewafl_select S={S}: a call runs {sorted(names)}", flush=True)
+
+
+def select_kernels(dev, S: int, calls: int = 3) -> set:
+    """The names of the selection kernels that `calls` main-path-shaped
+    calls at fleet size S ran, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rewafl_select import ops
+    avail, ui, rnd = select_inputs(S, "unavail30", 3, dev)
+    kw = dict(k_exploit=MAIN_K, k_explore=0, T_round=60.0, alpha=1.0, beta=1.0)
+    ops.select_topk(avail, ui, rnd, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.select_topk(avail, ui, rnd, **kw)
+        torch.cuda.synchronize()
+    return {m.group(0) for e in _device_kernels(prof)[0]
+            if (m := re.search(r"select_(one|tiles|merge)", e.key))}
 
 
 def time_select(dev, S: int = MAIN_S) -> dict:
@@ -238,7 +305,7 @@ def time_select(dev, S: int = MAIN_S) -> dict:
     from repro_torch.core import utility as util
     from repro_torch.kernels.rewafl_select import ops, ref
     K = MAIN_K
-    avail, ui, rnd = select_inputs(S, "unavail30", 7, dev)
+    avail, ui, rnd = select_inputs(S, "unavail30", 7, dev, K)
     kw = dict(k_exploit=K, k_explore=0, T_round=60.0, alpha=1.0, beta=1.0)
 
     def kernel():
@@ -254,6 +321,13 @@ def time_select(dev, S: int = MAIN_S) -> dict:
     return dict(ms=time_ms(kernel), eager_ms=time_eager_ms(kernel),
                 plain_ms=time_ms(lambda: ref.select_topk(avail, ui, rnd, **kw)),
                 library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def time_launch_floor() -> float:
+    """The smallest PyTorch kernel on the kernels' timer: `zero_()` on a
+    one-element tensor."""
+    one = torch.empty(1, device="cuda")
+    return time_ms(one.zero_)
 
 
 # ------------------------------------------------------------------- fedavg
@@ -459,7 +533,10 @@ def phase_slstm(dev) -> float:
     # the bf16 cluster kernel: two n8 tiles, clusters of 4, eight clusters
     cases += [(16, 64, 4, 512, torch.bfloat16, 0.0), (4, 256, 4, 256, torch.bfloat16, 0.0),
               (4, 128, 8, 512, torch.bfloat16, 0.0)]
-    for B, NH, hd in sorted({(B, NH, hd) for B, _, NH, hd, dt, _ in cases
+    # above the 16 rows a launch takes: two launches, one a slice
+    cases += [(17, 64, 4, 512, torch.bfloat16, 0.0), (32, 17, 4, 512, torch.bfloat16, 0.0),
+              (17, 17, 4, 64, torch.float32, 0.0), (32, 9, 4, 512, torch.float32, 0.0)]
+    for B, NH, hd in sorted({(min(B, ops.MAX_B), NH, hd) for B, _, NH, hd, dt, _ in cases
                              if dt == torch.bfloat16}):
         cl, J = ops.tc_plan(B, hd)
         print(f"slstm bf16 B={B} NH={NH} hd={hd}: clusters of {cl} blocks (J {J}), "
@@ -468,7 +545,7 @@ def phase_slstm(dev) -> float:
     main_err = None
     for i, (B, T, NH, hd, dt, shift) in enumerate(cases):
         x, r = slstm_inputs(B, T, NH, hd, dt, 400 + i, dev, shift)
-        tc0 = ops.tc_launches
+        l0, tc0 = ops.launches, ops.tc_launches
         h, st = ops.slstm_scan(x, r)
         want_h, want_st = ref.slstm_scan(x, r)
         torch.cuda.synchronize()
@@ -476,7 +553,10 @@ def phase_slstm(dev) -> float:
             f" input gates +{shift:g}" if shift else "")
         check(h.dtype == dt and h.shape == (B, T, NH, hd), f"slstm {name}: got {h.dtype} "
               f"{tuple(h.shape)}")
-        check(ops.tc_launches - tc0 == int(dt == torch.bfloat16),
+        n_launch = len(ops.batch_slices(B))
+        check(ops.launches - l0 == n_launch, f"slstm {name}: {ops.launches - l0} launches, "
+                                             f"not {n_launch}")
+        check(ops.tc_launches - tc0 == n_launch * (dt == torch.bfloat16),
               f"slstm {name}: the cluster kernel ran {ops.tc_launches - tc0} times")
         errs = []
         for what, got, want in [("h", h, want_h.to(dt))] + list(zip("hcnm", st, want_st)):
@@ -489,7 +569,8 @@ def phase_slstm(dev) -> float:
             errs.append(d)
         tol = "1e-5 of max(1, scale)" if dt == torch.float32 else "2**-7 of scale"
         print(f"slstm {name}: max_abs_err h {errs[0]:.3g}, final h/c/n/m "
-              f"{'/'.join(f'{e:.3g}' for e in errs[1:])} ({tol})", flush=True)
+              f"{'/'.join(f'{e:.3g}' for e in errs[1:])} ({tol}; {n_launch} launch"
+              f"{'es' if n_launch > 1 else ''})", flush=True)
         if (B, T, NH, hd, dt, shift) == (4, 2048, 4, 512, torch.bfloat16, 0.0):
             main_err = errs[0]
     return main_err
@@ -691,11 +772,12 @@ SERVE_B, SERVE_S, SERVE_TOKENS = 4, 2048, 32
 SERVE_REPEATS = {"llama3.2-3b": 5, "xlstm-1.3b": 3}
 
 
-def prefill_launches(cfg) -> dict:
-    """The kernel launches one prefill of `cfg` makes; every other kernel
-    must launch 0 times."""
+def prefill_launches(cfg, batch: int) -> dict:
+    """The kernel launches one prefill of `cfg` at `batch` makes (slstm:
+    one a slice of at most 16 rows); every other kernel must launch 0
+    times."""
     if cfg.family == "ssm":
-        return {"slstm": cfg.n_layers // cfg.slstm_group}
+        return {"slstm": cfg.n_layers // cfg.slstm_group * -(-batch // 16)}
     return {"flash_attention": cfg.n_layers}
 
 
@@ -729,7 +811,7 @@ def phase_serve(dev, arch: str, cfg, params):
     res = serve(arch, tokens=SERVE_TOKENS, seed=0, **kw)
     counts, tc = read_launches(), read_tc_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {k: prefill_launches(cfg).get(k, 0) for k in counts}
+    want = {k: prefill_launches(cfg, SERVE_B).get(k, 0) for k in counts}
     check(counts == want, f"{arch}: one prefill launched {counts}, not {want}")
     # bf16 weights: every attention and sLSTM launch is a tensor-core kernel's
     for k in TC_KERNELS:
@@ -774,33 +856,35 @@ def phase_serve(dev, arch: str, cfg, params):
 # test measures up to 4.1e-5 against the reference); with bf16 weights
 # every layer rounds to bf16 (up to 1.4e-2 there)
 SERVE_AGREE_REL = {"float32": 5e-4, "bfloat16": 3e-2}
-# (arch, prompt length): xlstm's prompt is one mLSTM chunk of 64
-AGREE_ARCHS = [("llama3.2-3b", 40), ("gemma2-27b", 40), ("xlstm-1.3b", 64)]
+# (arch, prompt length, batch): xlstm's prompt is one mLSTM chunk of 64;
+# at batch 17 each sLSTM layer runs two slstm launches
+AGREE_ARCHS = [("llama3.2-3b", 40, 2), ("gemma2-27b", 40, 2), ("xlstm-1.3b", 64, 2),
+               ("xlstm-1.3b", 64, 17)]
 
 
 def phase_serve_agreement(dev) -> None:
     """Reduced llama3.2-3b, gemma2-27b (hd 64; gemma2 with windows and
-    softcaps) and xlstm-1.3b (8 layers, 4 sLSTM of hd 64), with f32 and
-    with bf16 weights, served on the card and on the CPU from the same
-    weights: greedy ids equal, last logits within SERVE_AGREE_REL of their
-    scale."""
+    softcaps) and xlstm-1.3b (8 layers, 4 sLSTM of hd 64; at batch 2 and
+    17), with f32 and with bf16 weights, served on the card and on the CPU
+    from the same weights: greedy ids equal, last logits within
+    SERVE_AGREE_REL of their scale."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.api import get_model_api
-    for arch, prompt_len in AGREE_ARCHS:
+    for arch, prompt_len, batch in AGREE_ARCHS:
         for dt, rel in SERVE_AGREE_REL.items():
             cfg = dataclasses.replace(get_config(arch, reduced=True), param_dtype=dt)
             params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
-            kw = dict(reduced=True, param_dtype=dt, batch=2, prompt_len=prompt_len,
+            kw = dict(reduced=True, param_dtype=dt, batch=batch, prompt_len=prompt_len,
                       tokens=8, seed=5)
             cpu = serve(arch, device="cpu", params=params, **kw)
             tc0 = read_tc_launches()
             card = serve(arch, device=dev, params=_to(params, dev), **kw)
             tc = {k: v - tc0[k] for k, v in read_tc_launches().items()}
-            name = f"{arch} reduced {dt}"
-            want = prefill_launches(cfg)
+            name = f"{arch} reduced {dt} batch {batch}"
+            want = prefill_launches(cfg, batch)
             got = {k: v for k, v in (("flash_attention", card.flash_launches),
                                      ("slstm", card.slstm_launches)) if v or k in want}
             check(got == want, f"{name}: launches on the card {got}, not {want}")
@@ -959,9 +1043,14 @@ def main() -> None:
     flash_err = phase_flash(dev)
     slstm_err = phase_slstm(dev)
     stat_err = phase_stat_util(dev)
+    floor_ms = time_launch_floor()
+    print(f"time launch floor: launch_floor_ms {floor_ms:.5f} (zero_() on one element)",
+          flush=True)
     times = {"rewafl_select": time_select(dev), "fedavg": time_fedavg(dev),
              "flash_attention": time_flash(dev), "slstm": time_slstm(dev),
              "stat_util": time_stat_util(dev, MAIN_K, 32)}
+    for v in times.values():
+        v["launch_floor_ms"] = floor_ms
     for k, v in list(times.items()) + [
             ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
             ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
@@ -971,7 +1060,8 @@ def main() -> None:
         lib = "none" if v["library_ms"] is None else f"{v['library_ms']:.5f} ms"
         print(f"time {k}: kernel {v['ms']:.5f} ms{extra} (issued from Python "
               f"{v['eager_ms']:.5f} ms), plain {v['plain_ms']:.5f} ms, library "
-              f"{lib}, bound {v['bound_ms']:.6f} ms ({v['bound_by']})", flush=True)
+              f"{lib}, bound {v['bound_ms']:.6f} ms ({v['bound_by']}), launch floor "
+              f"{floor_ms:.5f} ms", flush=True)
 
     # the FL path: rewafl_select, fedavg, stat_util
     counts = {k: v for k, v in phase_main_path(dev).items()
@@ -984,8 +1074,8 @@ def main() -> None:
     for arch in SERVE_REPEATS:   # the serving paths: flash_attention, slstm
         cfg, params = serve_params(dev, arch)
         serve_counts, serve_tc, serve_out = phase_serve(dev, arch, cfg, params)
-        counts.update({k: serve_counts[k] for k in prefill_launches(cfg)})
-        tc_counts.update({k: serve_tc[k] for k in prefill_launches(cfg)})
+        counts.update({k: serve_counts[k] for k in prefill_launches(cfg, SERVE_B)})
+        tc_counts.update({k: serve_tc[k] for k in prefill_launches(cfg, SERVE_B)})
         if profile:
             phase_profile_serve(dev, arch, params, serve_out)
         del params

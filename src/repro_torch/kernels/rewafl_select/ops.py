@@ -4,7 +4,13 @@
 (`ref.select_topk`); tensors on a CUDA device launch the hand-written
 kernel (`csrc/rewafl_select.cu`) or raise — there is no fallback from
 the kernel to the plain version. `launches` counts kernel launches (one
-per call that launches; the plain version does not count).
+per call that launches, whether it runs one kernel or two; the plain
+version does not count).
+
+The kernel takes any K <= S: up to 8,192 devices in one launch of one
+block, above that in two (each tile of 8,192 devices hands on its K
+smallest keys, then one block selects over them), with scratch the
+wrapper allocates (`csrc/rewafl_select.cu`).
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ def _lib() -> ctypes.CDLL:
     lib.rewafl_select.argtypes = (
         [_P] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [_P] * 4)
     lib.rewafl_select.restype = ctypes.c_int
-    for fn in (lib.rewafl_select_tile, lib.rewafl_select_max_k):
-        fn.argtypes, fn.restype = [], ctypes.c_int
+    lib.rewafl_select_scratch.argtypes = [ctypes.c_int] * 3
+    lib.rewafl_select_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -49,13 +55,12 @@ def _launch(available, ui, rnd, *, k_exploit, k_explore, T_round, alpha, beta):
     if available.dtype != torch.bool or not available.is_contiguous():
         raise ValueError("rewafl_select: `available` must be a contiguous "
                          "bool tensor")
+    if k_exploit < 0 or k_explore < 0 or not 1 <= K <= S:
+        raise ValueError(f"rewafl_select: K={K} ({k_exploit} + {k_explore}) "
+                         f"outside [1, S={S}]")
     lib = _lib()
-    if not 1 <= K <= min(S, lib.rewafl_select_max_k()):
-        raise ValueError(f"rewafl_select: K={K} outside [1, min(S, "
-                         f"{lib.rewafl_select_max_k()})]")
-    n_blocks = -(-S // lib.rewafl_select_tile())
-    kc = K if k_explore > 0 else 0
-    scratch = torch.empty(n_blocks * (k_exploit + kc), dtype=torch.int64, device=dev)
+    scratch = torch.empty(lib.rewafl_select_scratch(S, k_exploit, k_explore),
+                          dtype=torch.int64, device=dev)
     idx = torch.empty(K, dtype=torch.int32, device=dev)
     live = torch.empty(K, dtype=torch.int32, device=dev)
     r = rnd if k_explore > 0 else ui.stat   # not read when k_explore == 0

@@ -4,7 +4,9 @@
 (`ref.slstm_scan`); tensors on a CUDA device launch one of the two
 hand-written kernels of `csrc/slstm.cu` by dtype, or raise — there is no
 fallback. `launches` counts launches of either kernel, `tc_launches`
-those of the bf16 one alone.
+those of the bf16 one alone. A kernel takes at most `MAX_B` batch rows;
+a larger batch runs as one launch per slice of at most `MAX_B` rows
+(`batch_slices`), each counted: batch rows are independent.
 
 bf16: one thread-block cluster of CL blocks per head (256 threads each),
 block rank r owning the J = hd/CL hidden units from r·J, their gate
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -33,7 +35,7 @@ from repro_torch.kernels.slstm import ref
 launches = 0      # kernel launches since the last reset (a plain counter)
 tc_launches = 0   # of which the bf16 cluster kernel's
 
-MAX_B = 16          # batch rows the kernels take
+MAX_B = 16          # batch rows a launch takes
 THREADS = 256       # threads per block
 _TOO_LARGE = 720    # cudaErrorCooperativeLaunchTooLarge
 _NO_CLUSTER = -1    # the bf16 entry's "no cluster of CL blocks fits"
@@ -71,7 +73,8 @@ def tc_plan(batch: int, head_dim: int) -> Tuple[int, int]:
     16 whose J = hd/CL units a block are a multiple of 8 (16-byte runs of
     h and x_pre) and whose share of Rᵀ a warp — ⌈J/32⌉ m-tiles of 16 gate
     columns × hd/16 k-steps — is at most 32 fragments, so that R stays in
-    registers. hd must be a multiple of 16 up to 512, B 1..16. Mirrors
+    registers. hd must be a multiple of 16 up to 512, B (a launch's
+    slice) 1..16. Mirrors
     `tc::plan` in `csrc/slstm.cu`."""
     if not 1 <= batch <= MAX_B:
         raise ValueError(f"slstm: batch {batch} outside the kernel's 1..{MAX_B}")
@@ -106,7 +109,8 @@ def _check(err: int, what: str, J: int, NH: int, hd: int) -> None:
         raise RuntimeError(f"slstm {what} launch failed: CUDA error {err}")
 
 
-def _check_inputs(x_pre: torch.Tensor, r: torch.Tensor) -> None:
+def _check_inputs(x_pre: torch.Tensor, r: torch.Tensor,
+                  state: Optional[ref.State]) -> None:
     """Raise on what neither kernel takes."""
     if x_pre.dtype not in DTYPES:
         raise ValueError(f"slstm: unsupported dtype {x_pre.dtype}")
@@ -120,20 +124,21 @@ def _check_inputs(x_pre: torch.Tensor, r: torch.Tensor) -> None:
     if tuple(r.shape) != (NH, hd, 4 * hd) or hd4 != 4 * hd or hd == 0:
         raise ValueError(f"slstm: x_pre {tuple(x_pre.shape)} and r {tuple(r.shape)} "
                          "disagree on heads or head width")
-    if not 1 <= B <= MAX_B:
-        raise ValueError(f"slstm: batch {B} outside the kernel's 1..{MAX_B}")
+    if B < 1:
+        raise ValueError(f"slstm: batch {B} is empty")
     if not (x_pre.is_contiguous() and r.is_contiguous()):
         raise ValueError("slstm: x_pre and r must be contiguous")
     if T >= 2**31:
         raise ValueError(f"slstm: {T} steps outside the kernel's range")
+    if state is not None and any(tuple(s.shape) != (B, NH, hd) for s in state):
+        raise ValueError(f"slstm: state leaves must be (B, NH, hd) = {(B, NH, hd)}")
 
 
 def _state(state: Optional[ref.State], B: int, NH: int, hd: int, dev) -> ref.State:
     """(h0, c, n, m): h0 as given, f32 copies of c, n and m (the kernels
-    overwrite them with the final state)."""
+    overwrite them with the final state). `_check_inputs` checked the
+    shapes."""
     h0, c, n, m = state if state is not None else ref.init_state(B, NH, hd, dev)
-    if any(tuple(s.shape) != (B, NH, hd) for s in (h0, c, n, m)):
-        raise ValueError(f"slstm: state leaves must be (B, NH, hd) = {(B, NH, hd)}")
     c, n, m = (torch.empty((B, NH, hd), device=dev).copy_(s) for s in (c, n, m))
     return h0, c, n, m
 
@@ -195,6 +200,29 @@ def _launch(x_pre: torch.Tensor, r: torch.Tensor,
     return out, (h_last, c, n, m)
 
 
+def batch_slices(batch: int) -> List[slice]:
+    """The batch rows of each launch: slices of at most MAX_B rows, in
+    order, ⌈batch / MAX_B⌉ of them."""
+    return [slice(b, min(b + MAX_B, batch)) for b in range(0, batch, MAX_B)]
+
+
+Launch = Callable[[torch.Tensor, torch.Tensor, Optional[ref.State]],
+                  Tuple[torch.Tensor, ref.State]]
+
+
+def run_sliced(launch: Launch, x_pre: torch.Tensor, r: torch.Tensor,
+               state: Optional[ref.State]) -> Tuple[torch.Tensor, ref.State]:
+    """`launch` once per slice of `batch_slices`, on x_pre's rows (a
+    contiguous view: batch leads) and the state's; h and the final state
+    concatenated back along the batch."""
+    parts = [launch(x_pre[s], r, None if state is None else tuple(t[s] for t in state))
+             for s in batch_slices(x_pre.shape[0])]
+    if len(parts) == 1:
+        return parts[0]
+    h = torch.cat([p[0] for p in parts])
+    return h, tuple(torch.cat([p[1][i] for p in parts]) for i in range(4))
+
+
 def slstm_scan(x_pre: torch.Tensor, r: torch.Tensor,
                state: Optional[ref.State] = None) -> Tuple[torch.Tensor, ref.State]:
     """x_pre (B, T, NH, 4·hd) pre-activations, gates z, i, f, o within each
@@ -206,10 +234,9 @@ def slstm_scan(x_pre: torch.Tensor, r: torch.Tensor,
         return h.to(x_pre.dtype), st
     if x_pre.device.type != "cuda":
         raise ValueError(f"slstm: unsupported device {x_pre.device}")
-    _check_inputs(x_pre, r)
-    if x_pre.dtype == torch.bfloat16:
-        return _launch_tc(x_pre, r, state)
-    return _launch(x_pre, r, state)
+    _check_inputs(x_pre, r, state)
+    return run_sliced(_launch_tc if x_pre.dtype == torch.bfloat16 else _launch,
+                      x_pre, r, state)
 
 
 def barrier_floor(batch: int, steps: int, n_heads: int, head_dim: int,

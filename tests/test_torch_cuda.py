@@ -4,7 +4,8 @@ Marked `cuda`: they skip without a CUDA device (the kernels are CUDA C++
 for sm_90a, built by nvcc at first use). This file imports neither JAX
 nor the JAX package: the plain versions, which the CPU parity tests hold
 against the reference, are the oracle here. `rewafl_select` must match
-bitwise; `fedavg` within atol 1e-5 in f32 (another sum order) and 0.05
+bitwise, for any K <= S (one launch of one block up to 8,192 devices,
+two above); `fedavg` within atol 1e-5 in f32 (another sum order) and 0.05
 in bf16; `flash_attention` within atol 1e-5 in f32 (another sum order)
 and one bf16 step in bf16 (rtol 2**-7, atol 1e-5: both round one f32
 result; bf16 runs the tensor-core kernel, f32 the CUDA-core one); `slstm` within 1e-5 of max(1, the tensor's scale max |plain|)
@@ -12,12 +13,14 @@ in f32 (another sum order; m and n grow to 10-60 with large input gates)
 and one bf16 step of the scale (2**-7 of max |plain|) in bf16, on h and
 on the final state (a product rounded to bf16 on the other side of a tie
 moves the steps after it; bf16 runs the cluster kernel, f32 the
-cooperative one); `stat_util` within rtol 1e-5 (another sum order).
+cooperative one; a batch above 16 runs one launch per slice of at most
+16 rows); `stat_util` within rtol 1e-5 (another sum order).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.selection import _explore_slots
 from repro_torch.core.utility import UtilityInputs
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.fedavg import ref as fedavg_ref
@@ -51,6 +54,17 @@ def _select_case(S, case, K, dev):
     elif case == "under_k":
         avail[:] = False
         avail[rng.permutation(S)[:K // 2]] = True
+    elif case == "none":      # no device available: every slot dead
+        avail[:] = False
+    elif case == "nan":       # NaN utilities rank first and are dead
+        blk = rng.permutation(S)[:max(1, S // 10)]
+        cols[0][blk] = np.nan
+        avail[blk] = True
+    elif case == "negzero":   # -0 and +0 utilities tie: lower index first
+        blk = rng.permutation(S)[:max(1, S // 4)]
+        cols[0][blk[::2]] = -0.0
+        cols[2][blk[1::2]] = 1e9   # e above the headroom: utility +0
+        avail[blk] = True
     t = [torch.tensor(c, dtype=torch.float32, device=dev) for c in cols]
     return torch.tensor(avail, device=dev), UtilityInputs(*t[:5]), t[5]
 
@@ -90,12 +104,46 @@ def test_rewafl_select_non_unit_exponents_match_plain_bitwise(dev, alpha, beta,
     assert torch.equal(idx, ridx) and torch.equal(live, rlive)
 
 
+def _select_grid():
+    """(S, K): S up to 1e6, around 2,048 and around the one-block limit
+    and stage-1 tile (8,192); K 1, 20, 256, 257 and S (K = S up to S
+    1e5)."""
+    grid = []
+    for S in (1, 100, 2047, 2048, 2049, 8192, 8193, 100_000, 1_000_000):
+        ks = {1, 20, 256, 257} | ({S} if S <= 100_000 else set())
+        grid += [(S, K) for K in sorted(ks) if K <= S]
+    return grid
+
+
+SELECT_CASES = ("random", "ties", "under_k", "none", "nan", "negzero")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K", _select_grid())
+@pytest.mark.parametrize("eps", [0.0, 0.1, 0.5])
+def test_rewafl_select_any_k_matches_plain_bitwise(dev, S, K, eps):
+    k_explore = _explore_slots(eps, K)
+    kw = dict(k_exploit=K - k_explore, k_explore=k_explore, T_round=60.0,
+              alpha=1.0, beta=1.0)
+    for case in SELECT_CASES:
+        avail, ui, rnd = _select_case(S, case, K, dev)
+        before = select_ops.launches
+        idx, live = select_ops.select_topk(avail, ui, rnd, **kw)
+        ridx, rlive = select_ref.select_topk(avail, ui, rnd, **kw)
+        torch.cuda.synchronize()
+        assert select_ops.launches == before + 1
+        assert torch.equal(live, rlive), case
+        assert torch.equal(idx, ridx), case
+
+
 @pytest.mark.cuda
 def test_rewafl_select_rejects_k_above_its_limit(dev):
+    """K must lie in [1, S]; any K up to S is taken."""
     avail, ui, rnd = _select_case(1000, "random", 20, dev)
-    with pytest.raises(ValueError, match="outside"):
-        select_ops.select_topk(avail, ui, rnd, k_exploit=257, k_explore=0,
-                               T_round=60.0, alpha=1.0, beta=1.0)
+    for kx, kr in ((1001, 0), (995, 6), (0, 0), (-1, 2)):
+        with pytest.raises(ValueError, match="outside"):
+            select_ops.select_topk(avail, ui, rnd, k_exploit=kx, k_explore=kr,
+                                   T_round=60.0, alpha=1.0, beta=1.0)
 
 
 @pytest.mark.cuda
@@ -299,6 +347,31 @@ def test_tc_slstm_matches_plain(dev, B, T, NH, hd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [17, 32])
+@pytest.mark.parametrize("T,NH,hd", [(9, 4, 512), (17, 4, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_above_batch_16_matches_plain(dev, B, T, NH, hd, dtype):
+    """Two slices of at most 16 rows, one launch each, in two calls, the
+    second from the first's final state."""
+    x, r = _slstm_inputs(B, T, NH, hd, dtype, dev, B + T + hd)
+    t1 = T // 2
+    before = slstm_ops.launches, slstm_ops.tc_launches
+    h1, st1 = slstm_ops.slstm_scan(x[:, :t1].contiguous(), r)
+    assert slstm_ops.launches == before[0] + 2
+    h2, st2 = slstm_ops.slstm_scan(x[:, t1:].contiguous(), r, st1)
+    want_h, want_st = slstm_ref.slstm_scan(x, r)
+    torch.cuda.synchronize()
+    assert slstm_ops.launches == before[0] + 4
+    assert slstm_ops.tc_launches == before[1] + 4 * (dtype == torch.bfloat16)
+    h = torch.cat([h1, h2], 1)
+    assert h.dtype == dtype and h.shape == (B, T, NH, hd)
+    _assert_slstm_close(h, want_h.to(dtype), dtype)
+    for got, want in zip(st2, want_st):
+        assert got.dtype == torch.float32 and got.shape == (B, NH, hd)
+        _assert_slstm_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 def test_tc_slstm_clusters_fit(dev):
     """At least one cluster of each plan fits; xlstm-1.3b's clusters of 16
     need the non-portable cluster size."""
@@ -324,7 +397,7 @@ def test_slstm_from_a_state_and_large_input_gates(dev, dtype):
 
 @pytest.mark.cuda
 def test_slstm_rejects_what_the_kernel_does_not_take(dev):
-    x, r = _slstm_inputs(17, 3, 4, 64, torch.float32, dev, 0)
+    x, r = _slstm_inputs(0, 3, 4, 64, torch.float32, dev, 0)
     with pytest.raises(ValueError, match="batch"):
         slstm_ops.slstm_scan(x, r)
     x, r = _slstm_inputs(2, 3, 4, 64, torch.float32, dev, 0)
@@ -332,6 +405,13 @@ def test_slstm_rejects_what_the_kernel_does_not_take(dev):
         slstm_ops.slstm_scan(x, r.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         slstm_ops.slstm_scan(x.transpose(0, 1), r)
+    # a state of another batch is refused, not cut to the slices' rows
+    for B in (17, 4):
+        x, r = _slstm_inputs(B, 3, 4, 64, torch.float32, dev, 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            st = slstm_ref.init_state(20, 4, 64, dev)
+            with pytest.raises(ValueError, match="state leaves"):
+                slstm_ops.slstm_scan(x.to(dtype), r.to(dtype), st)
     # f32 runs the cooperative kernel: all 256 blocks (at least) at once
     x, r = _slstm_inputs(16, 3, 8, 512, torch.float32, dev, 0)
     with pytest.raises(ValueError, match="fits"):
@@ -399,3 +479,32 @@ def test_full_width_bf16_xlstm_prefill_runs_the_cluster_kernel(dev):
     assert res.slstm_launches == 6
     assert slstm_ops.launches - before[0] == slstm_ops.tc_launches - before[1] == 6
     assert res.ids.shape == (1, 3) and torch.isfinite(res.last_logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_xlstm_serve_above_batch_16_matches_cpu(dev, param_dtype):
+    """Reduced xlstm-1.3b at batch 17: two slstm launches a sLSTM layer, the
+    same greedy ids as the CPU and last logits within the reduced
+    agreement's limits (5e-4 of scale with f32 weights, 3e-2 with bf16)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import get_model_api
+    cfg = dataclasses.replace(get_config("xlstm-1.3b", reduced=True),
+                              param_dtype=param_dtype)
+    params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
+    kw = dict(reduced=True, batch=17, prompt_len=64, tokens=3, seed=5,
+              param_dtype=param_dtype)
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    cpu = serve("xlstm-1.3b", device="cpu", params=params, **kw)
+    card = serve("xlstm-1.3b", device=dev, params=to(params), **kw)
+    assert card.slstm_launches == 2 * (cfg.n_layers // cfg.slstm_group)
+    assert torch.equal(cpu.ids, card.ids.cpu())
+    rel = 5e-4 if param_dtype == "float32" else 3e-2
+    scale = cpu.last_logits.abs().max().item()
+    assert (cpu.last_logits - card.last_logits.cpu()).abs().max().item() <= rel * scale

@@ -5,7 +5,9 @@ ref.py`, what a CPU tensor runs) is held against the reference's Pallas
 kernel in interpret mode (`select_mask(..., backend="pallas",
 interpret=True)`, which pads S to the tile grid) and against its oracle
 `ref.select_ref`: masks bitwise, and the kernel's (K,) live flags and
-live indices bitwise. Both sides get the same uniform explore draw. The
+live indices bitwise. Both sides get the same uniform explore draw. K
+above 256 and K = S (which the CUDA kernel takes) are held against the
+oracle at S 300 and 4,096, and against the Pallas kernel at S 300. The
 CUDA kernel itself is held against the plain version on the card
 (`test_torch_cuda.py`).
 """
@@ -27,22 +29,22 @@ from repro_torch.kernels.rewafl_select import ops, ref
 K = 8
 
 
-def _case(seed, S, case):
+def _case(seed, S, case, k=K):
     """(avail, five f32 leaves, uniform draw) as numpy; `case` adds ties
-    or fewer than K available devices."""
+    (2k devices) or fewer than k available devices."""
     rng = np.random.RandomState(seed)
     stat, t, e = rng.uniform(0, 1e4, S), rng.uniform(1, 120, S), rng.uniform(10, 2e3, S)
     residual, e0 = rng.uniform(1e3, 6e4, S), rng.uniform(100, 3e3, S)
     u = rng.uniform(0, 1, S)
     avail = rng.uniform(0, 1, S) >= 0.3
-    if case == "ties":        # 2K devices share the top utility and draw
-        blk = rng.permutation(S)[:2 * K]
+    if case == "ties":        # 2k devices share the top utility and draw
+        blk = rng.permutation(S)[:2 * k]
         stat[blk], t[blk], e[blk], residual[blk], e0[blk] = 1e4, 1.0, 10.0, 6e4, 100.0
         u[blk] = 0.999
         avail[blk] = True
     elif case == "under_k":
         avail = np.zeros(S, bool)
-        avail[rng.permutation(S)[:K // 2 + 1]] = True
+        avail[rng.permutation(S)[:k // 2 + 1]] = True
     f32 = [np.asarray(a, np.float32) for a in (stat, t, e, residual, e0, u)]
     return avail, f32[:5], f32[5]
 
@@ -73,6 +75,41 @@ def test_mask_matches_pallas_interpret_and_oracle(eps, S, case):
     np.testing.assert_array_equal(got, np.asarray(want))
     np.testing.assert_array_equal(got, np.asarray(pallas))
     assert got.sum() == min(K, avail.sum()) and not (got & ~avail).any()
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "under_k"])
+@pytest.mark.parametrize("S,k", [(300, 257), (300, 300), (4096, 257), (4096, 4096)])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_large_k_mask_matches_oracle(eps, S, k, case):
+    """K above 256 and K = S (the CUDA kernel takes any K <= S): masks
+    bitwise the reference's `select_ref`, the selection its CPU path."""
+    avail, leaves, _ = _case(S + k + len(case), S, case, k)
+    key = jax.random.PRNGKey(k)
+    u = np.array(jax.random.uniform(key, (S,)))
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    ta, tui, tu = _port(avail, leaves, u)
+    got = ops.select_mask(tu, k, ta, eps, tui, **kw).numpy()
+    want = jref.select_ref(key, k, jnp.asarray(avail), eps, _jax_ui(leaves), **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert got.sum() == min(k, avail.sum()) and not (got & ~avail).any()
+
+
+@pytest.mark.parametrize("k", [257, 300])
+def test_large_k_mask_matches_pallas_interpret(k):
+    """S 300, K 257 and K = S, against the Pallas kernel in interpret mode
+    (at ε = 0: its unrolled K-pass merges make each further compile slow),
+    for each case on one compile."""
+    S = 300
+    key = jax.random.PRNGKey(k)
+    u = np.array(jax.random.uniform(key, (S,)))
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    for case in ("random", "ties", "under_k"):
+        avail, leaves, _ = _case(k + len(case), S, case, k)
+        ta, tui, tu = _port(avail, leaves, u)
+        got = ops.select_mask(tu, k, ta, 0.0, tui, **kw).numpy()
+        pallas = jops.select_mask(key, k, jnp.asarray(avail), 0.0, ui=_jax_ui(leaves),
+                                  backend="pallas", interpret=True, **kw)
+        np.testing.assert_array_equal(got, np.asarray(pallas), err_msg=case)
 
 
 @pytest.mark.parametrize("k_exploit,k_explore", [(8, 0), (6, 2), (0, 8)])

@@ -27,7 +27,10 @@ a last-bit f32 difference in tanh or exp can flip the bf16 rounding of one
 h, which moves the next steps: over 64 steps h stays within one bf16 step
 (2**-7) of its scale, as do the states c, n and m (measured ≤ 4.1e-4 of
 scale). The CUDA kernel is held against the plain version on the card
-(`tests/test_torch_cuda.py`, `chip_smoke.py`)."""
+(`tests/test_torch_cuda.py`, `chip_smoke.py`). A kernel launch takes at
+most 16 batch rows; above that the wrapper launches once a slice
+(`ops.batch_slices`, `ops.run_sliced`), emulated here over the plain
+version at B 17 and 33."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -145,6 +148,55 @@ def test_large_input_gates_stay_finite():
     want = j_ref.slstm_scan(jnp.asarray(xp).reshape(B, T, NH, 4 * hd), jnp.asarray(r))
     assert torch.isfinite(h).all() and all(torch.isfinite(s).all() for s in st)
     np.testing.assert_allclose(h.numpy(), np.asarray(want), atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("B,want", [(1, [(0, 1)]), (16, [(0, 16)]), (17, [(0, 16), (16, 17)]),
+                                    (32, [(0, 16), (16, 32)]),
+                                    (33, [(0, 16), (16, 32), (32, 33)])])
+def test_batch_slices(B, want):
+    """A launch takes at most 16 batch rows: ⌈B/16⌉ slices, in order."""
+    assert [(sl.start, sl.stop) for sl in ops.batch_slices(B)] == want
+
+
+@pytest.mark.parametrize("B", [4, 17])
+def test_state_of_another_batch_is_refused(B):
+    """The card's input check refuses a state whose batch is not x_pre's
+    before any slice is cut from it."""
+    x = torch.zeros(B, 3, 2, 4 * 16)
+    r = torch.zeros(2, 16, 4 * 16)
+    ops._check_inputs(x, r, ref.init_state(B, 2, 16, "cpu"))
+    with pytest.raises(ValueError, match="state leaves"):
+        ops._check_inputs(x, r, ref.init_state(20, 2, 16, "cpu"))
+
+
+@pytest.mark.parametrize("B", [17, 33])
+def test_b17_matches_pallas_kernel_and_sliced_launches(B):
+    """Above 16 rows: the wrapper's CPU path (the plain version) and the
+    launches the card would make, one a slice of `batch_slices` with the
+    state sliced the same way (`run_sliced` over the plain version, in two
+    calls, the second from the first's state), against the Pallas kernel
+    in interpret mode; atol 2e-5 as above."""
+    T, NH, hd = 10, 2, 16
+    xp, r = _inputs(B, T, NH, hd, B, r_scale=0.2)
+    x = _t(xp).reshape(B, T, NH, 4 * hd)
+    want = np.asarray(j_kernel.slstm_scan(jnp.asarray(xp), jnp.asarray(r), nh=NH,
+                                          interpret=True))
+    h, st = ops.slstm_scan(x, _t(r))
+    np.testing.assert_allclose(h.reshape(B, T, NH * hd).numpy(), want, atol=F32_ATOL, rtol=0)
+    rows = []
+
+    def launch(x_pre, rr, state):
+        rows.append(x_pre.shape[0])
+        return ref.slstm_scan(x_pre, rr, state)
+
+    h1, st1 = ops.run_sliced(launch, x[:, :4], _t(r), None)
+    h2, st2 = ops.run_sliced(launch, x[:, 4:], _t(r), st1)
+    assert rows == [sl.stop - sl.start for sl in ops.batch_slices(B)] * 2
+    hs = torch.cat([h1, h2], 1)
+    np.testing.assert_allclose(hs.reshape(B, T, NH * hd).numpy(), want, atol=F32_ATOL, rtol=0)
+    for a, b in zip(st2, st):
+        assert a.shape == (B, NH, hd)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=F32_ATOL, rtol=1e-5)
 
 
 @pytest.mark.parametrize("B,NH,hd,J", [(4, 4, 512, 16), (1, 4, 512, 16), (4, 4, 64, 2),
