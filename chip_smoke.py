@@ -56,9 +56,23 @@ Phases, in order; any failure exits non-zero:
 7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after (stat_util once a round); then
-   a small run on the card held against the same run on the CPU (plain
-   versions, same draws): selections bitwise, losses and costs within
-   rtol 1e-3;
+   each method (random, oort, autofl, reafl, reafl_lupa, rewafl) on
+   cnn@mnist, and rewafl and oort on cnn@har and lstm@shakespeare, each
+   `run_fl(task, method, small=False, n_clients=100, n_select=20,
+   rounds=6, eval_every=3)` with its launches counted from 0 (stat_util
+   once a round, fedavg at least once, rewafl_select once a round for
+   the rea methods and never for the others), finite history, 1 to 20
+   devices a round, and its steady ms/round (the second chunk); then
+   small runs on the card held against the same runs on the CPU (plain
+   versions, same draws) for rewafl, random, oort and autofl on
+   cnn@mnist, rewafl with the probe every 2 rounds, and rewafl on
+   cnn@har and lstm@shakespeare: selections bitwise, losses and costs
+   within rtol 1e-3; then `select_aggregate` (the select kernel, a
+   K-row gather and the fedavg kernel) against its plain version (the
+   dense masked sum) at S 100, K 20, P 206,922 and S 8,193, K 257, P
+   4,096, eps 0 and 0.1, ~30% and all but K/2 devices unavailable: masks
+   bitwise, the aggregate within atol 1e-5; and its time beside the
+   same steps issued one by one;
 8. the serving paths, each `serve(arch, batch=4, prompt_len=2048,
    tokens=32)` at full width with bf16 weights drawn on the card, after
    one warm-up call, with every kernel's launch count read just after,
@@ -72,11 +86,13 @@ Phases, in order; any failure exits non-zero:
    within 5e-4 of their scale with f32 weights and 3e-2 with bf16 weights
    (f32 weights run the CUDA-core flash kernel and the cooperative slstm
    kernel, bf16 the tensor-core ones);
-9. one JSON line of kernels, the card's name and power limit, and last
-   `{"ok": true, "device": {...}}`.
+9. a JSON line of `select_aggregate`'s check and times, one of kernels,
+   the card's name and power limit, and last `{"ok": true, "device":
+   {...}}`.
 
 `--profile` adds, before the last lines, the device time of 5 FL-path
-rounds by kernel, from torch.profiler, and the device's busy share: that
+rounds by kernel, and of 5 rounds of rewafl on lstm@shakespeare, from
+torch.profiler, and the device's busy share: that
 device time over the wall time of the same 5 rounds run without the
 profiler (which slows the host), and over the profiled wall time; then,
 for each serving path, the device time by kernel of one full-width
@@ -239,8 +255,8 @@ def phase_select(dev) -> None:
                 ridx, rlive = ref.select_topk(avail, ui, rnd, **kw)
                 torch.cuda.synchronize()
                 ok = (torch.equal(idx, ridx) and torch.equal(live, rlive)
-                      and torch.equal(ops.mask_from_slots(idx, live, S),
-                                      ops.mask_from_slots(ridx, rlive, S)))
+                      and torch.equal(ref.mask_from_slots(idx, live, S),
+                                      ref.mask_from_slots(ridx, rlive, S)))
                 if not ok:
                     bad = torch.nonzero((idx != ridx) | (live != rlive)).flatten()[:8]
                     fail(f"rewafl_select S={S} K={K} eps={eps} case={case}: slots "
@@ -718,51 +734,189 @@ def phase_main_path(dev):
     return counts
 
 
+# (task, method, probe_every, rounds) of the card-against-CPU runs: the
+# main path's for 8 rounds, then each other selector, the probe every 2
+# rounds, and the HAR and char tasks for 4
+AGREE_RUNS = [("cnn@mnist", "rewafl", 1, 8), ("cnn@mnist", "random", 1, 4),
+              ("cnn@mnist", "oort", 1, 4), ("cnn@mnist", "autofl", 1, 4),
+              ("cnn@mnist", "rewafl", 2, 4), ("cnn@har", "rewafl", 1, 4),
+              ("lstm@shakespeare", "rewafl", 1, 4)]
+
+
 def phase_small_agreement(dev) -> None:
-    """A small run on the card against the same run on the CPU: the same
+    """Small runs on the card against the same runs on the CPU: the same
     fleet, data, params and draws; kernels on one side, plain versions on
-    the other."""
+    the other. Selections bitwise, losses and costs within rtol 1e-3."""
+    import dataclasses
+
     from repro_torch.core.methods import METHODS
     from repro_torch.core.round import draw_noise, make_eval_fn
     from repro_torch.launch.engine import run_rounds
     from repro_torch.launch.fl_run import build_task, quick_cfg
     from repro_torch.models.fl_models import make_fl_model
     from repro_torch.sim.devices import build_fleet
-    S, K, R, n = 10, 4, 8, 32
-    cfg = quick_cfg(K)
-    model = make_fl_model("cnn@mnist", small=True)
-    params = model.init(torch.Generator().manual_seed(2))
-    gen = torch.Generator().manual_seed(1)
-    noise = [draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n)
-             for _ in range(R)]
-    out = {}
-    for d in ("cpu", dev):
-        fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
-                            init_energy_std=0.04, e0_frac=0.08)
-        cx, cy, test = build_task("cnn@mnist", S, 0.8, per_client=n, n_test=64,
-                                  device=d)
-        out[str(d)] = run_rounds(
-            model, fleet, cx, cy, cfg, METHODS["rewafl"], rounds=R,
-            params={k: v.to(d) for k, v in params.items()}, chunk_size=4,
-            eval_fn=make_eval_fn(model, test["x"], test["y"]),
-            noise_fn=lambda r, d=d: type(noise[r])(*(x.to(d) for x in noise[r])),
-            device=d)
-    a, b = out["cpu"], out[str(dev)]
-    check(np.array_equal(a.history["selected"], b.history["selected"]),
-          "small run: selections differ between the card and the CPU")
-    # cuDNN and the CPU sum convolutions in other orders; eight rounds of
-    # SGD grow that last-bit difference to about 1e-4 relative
-    rel = {}
-    for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
-        check(np.allclose(a.history[k], b.history[k], rtol=1e-3, atol=1e-5),
-              f"small run: {k} differs: {a.history[k]} vs {b.history[k]}")
-        d = np.abs(np.asarray(a.history[k], np.float64) - b.history[k])
-        rel[k] = float(np.max(d / np.maximum(np.abs(a.history[k]), 1e-30)))
-    check(np.all(np.abs(a.acc_curve - b.acc_curve) <= 1 / 64 + 1e-9),
-          f"small run: accuracy {a.acc_curve} vs {b.acc_curve}")
-    print(f"small run: {R} rounds on the card agree with the CPU run "
-          f"(selections bitwise, losses and costs within rtol 1e-3; max "
-          f"relative difference {json.dumps(rel)})", flush=True)
+    S, K, n = 10, 4, 32
+    for task, method, probe_every, R in AGREE_RUNS:
+        name = f"{task} {method}" + (f" probe_every={probe_every}" if probe_every > 1 else "")
+        spec = METHODS[method]
+        cfg = dataclasses.replace(quick_cfg(K), probe_every=probe_every)
+        H_max = cfg.policy.H0 if spec.policy == "fixed" else cfg.policy.H_max
+        model = make_fl_model(task, small=True)
+        params = model.init(torch.Generator().manual_seed(2))
+        gen = torch.Generator().manual_seed(1)
+        noise = [draw_noise(gen, S, K, H_max, cfg.batch_size, n) for _ in range(R)]
+        out = {}
+        for d in ("cpu", dev):
+            fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
+                                init_energy_std=0.04, e0_frac=0.08)
+            cx, cy, test = build_task(task, S, 0.8, per_client=n, n_test=64, device=d)
+            out[str(d)] = run_rounds(
+                model, fleet, cx, cy, cfg, spec, rounds=R,
+                params={k: v.to(d) for k, v in params.items()}, chunk_size=4,
+                eval_fn=make_eval_fn(model, test["x"], test["y"]),
+                noise_fn=lambda r, d=d: type(noise[r])(*(x.to(d) for x in noise[r])),
+                device=d)
+        a, b = out["cpu"], out[str(dev)]
+        check(np.array_equal(a.history["selected"], b.history["selected"]),
+              f"small run {name}: selections differ between the card and the CPU")
+        # cuDNN and the CPU sum convolutions in other orders; eight rounds of
+        # SGD grow that last-bit difference to about 1e-4 relative
+        rel = {}
+        for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
+            check(np.allclose(a.history[k], b.history[k], rtol=1e-3, atol=1e-5),
+                  f"small run {name}: {k} differs: {a.history[k]} vs {b.history[k]}")
+            dk = np.abs(np.asarray(a.history[k], np.float64) - b.history[k])
+            rel[k] = float(np.max(dk / np.maximum(np.abs(a.history[k]), 1e-30)))
+        check(np.all(np.abs(a.acc_curve - b.acc_curve) <= 1 / 64 + 1e-9),
+              f"small run {name}: accuracy {a.acc_curve} vs {b.acc_curve}")
+        print(f"small run {name}: {R} rounds on the card agree with the CPU run "
+              f"(selections bitwise, losses and costs within rtol 1e-3; max "
+              f"relative difference {json.dumps(rel)})", flush=True)
+
+
+# ------------------------------------------------- FL methods and tasks
+
+# each run: two chunks of 3 rounds, the first warms up, the second is the
+# steady ms/round
+PATH_ROUNDS, PATH_EVAL = 6, 3
+METHOD_RUNS = [("cnn@mnist", m) for m in
+               ("random", "oort", "autofl", "reafl", "reafl_lupa", "rewafl")]
+TASK_RUNS = [(t, m) for t in ("cnn@har", "lstm@shakespeare") for m in ("rewafl", "oort")]
+
+
+def phase_fl_run(dev, task: str, method: str) -> None:
+    """`run_fl(task, method)` at paper widths (S 100, K 20) on the card,
+    the launch counts set to 0 just before it and read just after:
+    stat_util once a round, fedavg at least once, rewafl_select once a
+    round for the rea methods and never for the others."""
+    from repro_torch.core.methods import METHODS
+    from repro_torch.launch.fl_run import run_fl
+    reset_launches()
+    t0 = time.time()
+    res = run_fl(task, method, small=False, n_clients=MAIN_S, n_select=MAIN_K,
+                 rounds=PATH_ROUNDS, eval_every=PATH_EVAL, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_launches()
+    R, name = res.rounds_run, f"{task} {method}"
+    check(R == PATH_ROUNDS, f"{name}: ran {R} rounds, not {PATH_ROUNDS}")
+    n_select = R if METHODS[method].selector == "rea" else 0
+    check(counts["stat_util"] == R and counts["rewafl_select"] == n_select
+          and counts["fedavg"] >= R and counts["flash_attention"] == counts["slstm"] == 0,
+          f"{name}: launches {counts} in {R} rounds (rewafl_select should "
+          f"launch {n_select} times)")
+    for k, v in res.history.items():
+        check(bool(np.all(np.isfinite(np.asarray(v, np.float64)))),
+              f"{name}: history {k!r} has non-finite values")
+    n_sel = res.history["n_selected"]
+    check(n_sel.shape == (R,) and 0 < int(n_sel.min()) and int(n_sel.max()) <= MAIN_K,
+          f"{name}: devices selected per round {n_sel.tolist()} (K = {MAIN_K})")
+    check(all(0.0 <= a <= 1.0 for a in res.acc_curve), f"{name}: accuracy {res.acc_curve}")
+    steady = float(res.chunk_wall_s[-1]) / int(res.chunk_rounds[-1]) * 1e3
+    print(f"fl_run {name}: {R} rounds in {wall:.2f} s, steady {steady:.1f} ms/round "
+          f"(second chunk of {PATH_EVAL}, eval included), final accuracy "
+          f"{res.acc_curve[-1]:.4f}; launches {counts}", flush=True)
+
+
+# ------------------------------------------------------- select_aggregate
+
+# (S, K, P): the paper CNN's parameters at the FL cell's fleet; a fleet
+# above one block's 8,192 devices (two select launches) and K above 256
+AGG_CASES = [(MAIN_S, MAIN_K, FEDAVG_P), (8193, 257, 4096)]
+AGG_ATOL = 1e-5   # fedavg's: the K-row and dense S-row sums add in other orders
+
+
+def agg_inputs(S, K, P, case, seed, dev):
+    avail, ui, rnd = select_inputs(S, case, seed, dev, K)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    deltas = torch.randn(S, P, generator=g, device=dev)
+    weights = torch.rand(S, generator=g, device=dev) + 0.5
+    return avail, ui, rnd, deltas, weights
+
+
+def phase_select_aggregate(dev) -> dict:
+    """`select_aggregate` (the select kernel, a K-row gather, the fedavg
+    kernel) against its plain version (the dense masked S-row sum): masks
+    bitwise, the aggregate within atol 1e-5, one launch of each kernel a
+    call; at eps 0 and 0.1, with ~30% and with all but K/2 devices
+    unavailable. Then its time at the first case, eps 0, beside the same
+    steps issued one by one as the round issues them (`select_mask`, the
+    slots of its mask, gather, `weighted_aggregate`)."""
+    from repro_torch.core.round import select_slots
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.rewafl_select import ops, ref
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    main_err = None
+    for S, K, P in AGG_CASES:
+        for eps in (0.0, 0.1):
+            for case in ("unavail30", "under_k"):
+                avail, ui, rnd, deltas, w = agg_inputs(S, K, P, case, S + K, dev)
+                l0 = ops.launches, fedavg_ops.launches
+                mask, agg = ops.select_aggregate(rnd, K, avail, eps, ui, deltas, w, **kw)
+                pmask, pagg = ref.select_aggregate(rnd, K, avail, eps, ui, deltas, w, **kw)
+                torch.cuda.synchronize()
+                name = f"select_aggregate S={S} K={K} P={P} eps={eps} {case}"
+                check((ops.launches - l0[0], fedavg_ops.launches - l0[1]) == (1, 1),
+                      f"{name}: {ops.launches - l0[0]} select and "
+                      f"{fedavg_ops.launches - l0[1]} fedavg launches")
+                check(torch.equal(mask, pmask), f"{name}: masks differ")
+                check(int(mask.sum()) == min(K, int(avail.sum())),
+                      f"{name}: {int(mask.sum())} selected")
+                err = (agg - pagg).abs().max().item()
+                check(agg.shape == (P,) and err <= AGG_ATOL,
+                      f"{name}: max |composed - plain| = {err} > {AGG_ATOL}")
+                print(f"{name}: mask bitwise, max_abs_err {err:.3g} (atol {AGG_ATOL})",
+                      flush=True)
+                if main_err is None:
+                    main_err = err
+    S, K, P = AGG_CASES[0]
+    avail, ui, rnd, deltas, w = agg_inputs(S, K, P, "unavail30", 11, dev)
+
+    def composed():
+        return ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
+
+    def one_by_one():
+        mask = ops.select_mask(rnd, K, avail, 0.0, ui=ui, **kw)
+        idx, live = select_slots(mask, K)
+        wk = w[idx] * live
+        return mask, fedavg_ops.weighted_aggregate(deltas[idx], wk / wk.sum().clamp_min(1e-9))
+
+    # the five leaves and the mask read once, K of the S rows and their
+    # weights read, the mask and the (P,) aggregate written; the utility's
+    # ~12 flops a device and 2 a gathered element
+    b_ms, b_by = bound(n_bytes=S * 21 + K * (P + 1) * 4 + S + P * 4,
+                       n_flops=12 * S + 2 * K * P)
+    return dict(name="select_aggregate", route="composition of the rewafl_select "
+                "and fedavg CUDA kernels",
+                source="src/repro_torch/kernels/rewafl_select/ops.py",
+                replaces="src/repro/kernels/rewafl_select/ops.py:134",
+                shape=f"S {S}, K {K}, P {P} f32, eps 0", launches=0,
+                max_abs_err=main_err, check="mask bitwise, aggregate atol 1e-5",
+                ms=time_ms(composed), eager_ms=time_eager_ms(composed),
+                separate_ms=time_ms(one_by_one), separate_eager_ms=time_eager_ms(one_by_one),
+                plain_ms=time_ms(lambda: ref.select_aggregate(
+                    rnd, K, avail, 0.0, ui, deltas, w, **kw)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
 # ------------------------------------------------------------- serving path
@@ -950,30 +1104,33 @@ def phase_profile_serve(dev, arch: str, params, main: dict) -> None:
                   f"{e.count:6d} calls  {e.key[:80]}", flush=True)
 
 
-def phase_profile(dev) -> None:
-    """`--profile`: device time by kernel over 5 main-path rounds, from
-    torch.profiler, and the device's busy share of the rounds' wall time."""
+def phase_profile(dev, task: str = "cnn@mnist", method: str = "rewafl",
+                  rounds: int = 5) -> None:
+    """`--profile`: device time by kernel over `rounds` rounds of
+    `run_fl(task, method)` at paper widths, from torch.profiler, and the
+    device's busy share of the rounds' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.fl_run import run_fl
-    kw = dict(small=False, n_clients=MAIN_S, n_select=MAIN_K, rounds=5,
-              eval_every=5, device=dev)
-    run_fl("cnn@mnist", "rewafl", **kw)   # warm-up
+    kw = dict(small=False, n_clients=MAIN_S, n_select=MAIN_K, rounds=rounds,
+              eval_every=rounds, device=dev)
+    run_fl(task, method, **kw)   # warm-up
     # the same 5 rounds without the profiler, which slows the host
     plain_s = statistics.median(
-        float(run_fl("cnn@mnist", "rewafl", **kw).chunk_wall_s.sum())
+        float(run_fl(task, method, **kw).chunk_wall_s.sum())
         for _ in range(3))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = run_fl("cnn@mnist", "rewafl", **kw)
+        res = run_fl(task, method, **kw)
         torch.cuda.synchronize()
     rounds_s = float(res.chunk_wall_s.sum())
     ev, busy_s = _device_kernels(prof)
-    print(f"profile: 5 rounds (eval included), device busy {busy_s * 1e3:.1f} "
+    print(f"profile {task} {method}: {sum(e.count for e in ev)} kernels in {rounds} "
+          f"rounds (eval included), device busy {busy_s * 1e3:.1f} "
           f"ms; wall {plain_s * 1e3:.1f} ms without the profiler (median of "
           f"3), busy {100 * busy_s / plain_s:.1f}%; wall {rounds_s * 1e3:.1f} "
           f"ms under it, busy {100 * busy_s / rounds_s:.1f}%", flush=True)
     for e in ev[:15]:
-        print(f"profile: {e.self_device_time_total / 1e3:9.2f} ms "
+        print(f"profile {task} {method}: {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:6d} calls  {e.key[:90]}", flush=True)
 
 
@@ -1066,10 +1223,22 @@ def main() -> None:
     # the FL path: rewafl_select, fedavg, stat_util
     counts = {k: v for k, v in phase_main_path(dev).items()
               if k in ("rewafl_select", "fedavg", "stat_util")}
+    # every method on the image task, REWAFL and Oort on the HAR and char
+    # tasks, each its own path with the counts read just after it
+    for task, method in METHOD_RUNS + TASK_RUNS:
+        phase_fl_run(dev, task, method)
     phase_small_agreement(dev)
+    agg = phase_select_aggregate(dev)
+    print(f"time select_aggregate: composed {agg['ms']:.5f} ms (issued from Python "
+          f"{agg['eager_ms']:.5f} ms), select_mask + slots + gather + "
+          f"weighted_aggregate {agg['separate_ms']:.5f} ms (issued from Python "
+          f"{agg['separate_eager_ms']:.5f} ms), plain {agg['plain_ms']:.5f} ms, bound "
+          f"{agg['bound_ms']:.6f} ms ({agg['bound_by']})", flush=True)
     profile = "--profile" in sys.argv[1:]
     if profile:
         phase_profile(dev)
+        # ~88,000 kernels a round: 2 rounds keep the trace's processing short
+        phase_profile(dev, "lstm@shakespeare", "rewafl", rounds=2)
     tc_counts = {}
     for arch in SERVE_REPEATS:   # the serving paths: flash_attention, slstm
         cfg, params = serve_params(dev, arch)
@@ -1101,6 +1270,8 @@ def main() -> None:
                     launches=counts[k], max_abs_err=err, **times[k], check=chk,
                     **({"tc_launches": tc_counts[k]} if k in TC_KERNELS else {}))
                for k, (src, rep, err, chk) in meta.items()]
+    agg["launch_floor_ms"] = floor_ms
+    print(json.dumps({"select_aggregate": agg}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -9,8 +9,7 @@
 | reafl_lupa  | Eqn (2)                       | AdaH [23]                  |
 | rewafl      | Eqn (2)                       | Eqn (3) + stopping Eqn (4) |
 
-The port's round body runs the `rea` selector under every policy; the
-random/oort/autofl selectors are registered here but not ported yet.
+The port's round body (`core.round.make_round_body`) runs all six.
 """
 from __future__ import annotations
 

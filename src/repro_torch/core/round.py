@@ -1,8 +1,10 @@
 """Algorithm 1 — one synchronous FL round on the static-paper fleet.
 
-Per round: uplink rates from the injected fading draw → per-device
-candidate H (policy) → latency/energy estimates → top-K selection by the
-Eqn-2 utility (the `rewafl_select` kernel op) → masked, vmapped local SGD
+Per round: uplink rates from the injected fading draw → the global
+model's probe loss (every `probe_every` rounds) → per-device candidate H
+(policy) → latency/energy estimates → selection by the method's selector
+(`rea`: the Eqn-2 utility through the `rewafl_select` kernel op; random,
+oort, autofl: the plain ε-greedy ranking) → masked, vmapped local SGD
 on the K selected slots to the static H_max → FedAvg (the `fedavg`
 kernel op) → the selected devices' statistical utility from their probe
 losses (the `stat_util` kernel op) → fleet-state update (Algorithm 1
@@ -28,6 +30,7 @@ import torch
 from torch.func import grad, vmap
 
 from repro_torch.core import policy as pol
+from repro_torch.core import selection as sel
 from repro_torch.core import utility as util
 from repro_torch.core.methods import MethodSpec
 from repro_torch.core.state import FleetState
@@ -54,8 +57,8 @@ class FLConfig:
     policy: pol.PolicyCfg = dataclasses.field(default_factory=pol.PolicyCfg)
     autofl_eta: float = 1.0
     autofl_ema: float = 0.5
-    # probe the global model every N rounds; only N = 1 (every round, the
-    # paper's semantics) is ported
+    # probe the global model every N rounds (1: every round, the paper's
+    # semantics); between probes the round reuses the last probed loss
     probe_every: int = 1
 
 
@@ -137,17 +140,12 @@ def select_slots(selected: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Te
 
 def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
     """Returns round(params, state, fleet, cx, cy, noise, round_idx) ->
-    (params', state', metrics) for a method with the `rea` selector and
-    any policy (`rewa`, `fixed`, `adah`). cx/cy: stacked client data
-    (S, n, ...); `round_idx` a Python int.
-
-    Options outside the static sync path raise NotImplementedError: the
-    random/oort/autofl selectors and `probe_every > 1`."""
-    if method.selector != "rea":
-        raise NotImplementedError(
-            f"selector {method.selector!r} is not ported yet (only 'rea')")
-    if cfg.probe_every != 1:
-        raise NotImplementedError("probe_every > 1 is not ported yet")
+    (params', state', metrics) for any selector (`random`, `oort`,
+    `autofl`, `rea`) and policy (`fixed`, `adah`, `rewa`). cx/cy: stacked
+    client data (S, n, ...); `round_idx` a Python int, so the
+    `probe_every` schedule is a plain `if`."""
+    if method.selector not in ("random", "oort", "autofl", "rea"):
+        raise ValueError(f"unknown selector {method.selector!r}")
     if method.policy not in ("rewa", "fixed", "adah"):
         raise ValueError(f"unknown policy {method.policy!r}")
     K = cfg.n_select
@@ -165,8 +163,11 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
         dev = cx.device
         rates = sample_rates(noise.fading_eps, fleet)
 
-        # --- global-model probe ------------------------------------------
-        g_loss, _ = _probe_losses(model, params, cx, cy, cfg.probe_size)
+        # --- global-model probe (amortised when probe_every > 1) ---------
+        if cfg.probe_every <= 1 or round_idx % cfg.probe_every == 0:
+            g_loss, _ = _probe_losses(model, params, cx, cy, cfg.probe_size)
+        else:
+            g_loss = state.g_loss
 
         # --- candidate H per policy (Algorithm 1 line 8) -------------------
         if method.policy == "rewa":   # Eqn (3) growth gated by Eqn (4)
@@ -184,12 +185,25 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
 
         # --- utilities + selection (lines 13–16) ---------------------------
         available = ~state.dropped
-        ui = util.UtilityInputs(state.last_stat, costs.t_total, costs.e_total,
-                                state.residual_energy, fleet.e0_reserve)
-        selected = rsel_ops.select_mask(noise.explore_u, K, available,
-                                        method.exploration, ui,
-                                        T_round=cfg.T_round, alpha=cfg.alpha,
-                                        beta=cfg.beta)
+        u, eps = noise.explore_u, method.exploration
+        if method.selector == "random":
+            selected = sel.random_select(u, K, available)
+        elif method.selector == "oort":
+            stat_tu = sel.temporal_uncertainty(state.last_stat, round_idx,
+                                               state.last_round)
+            scores = util.oort_utility(stat_tu, costs.t_total,
+                                       T_round=cfg.T_round, alpha=cfg.alpha)
+            selected = rsel_ops.select_mask(u, K, available, eps, scores=scores)
+        elif method.selector == "autofl":
+            selected = rsel_ops.select_mask(u, K, available, eps,
+                                            scores=state.q_value)
+        else:   # "rea": Eqn (2), fused into the selection kernel; ε = 0
+            ui = util.UtilityInputs(state.last_stat, costs.t_total,
+                                    costs.e_total, state.residual_energy,
+                                    fleet.e0_reserve)
+            selected = rsel_ops.select_mask(u, K, available, 0.0, ui=ui,
+                                            T_round=cfg.T_round,
+                                            alpha=cfg.alpha, beta=cfg.beta)
 
         # --- feasibility: selected devices without enough battery fail ----
         feasible = costs.e_total < (state.residual_energy - fleet.e0_reserve)

@@ -53,3 +53,12 @@ def epsilon_greedy(u: torch.Tensor, utils: torch.Tensor, k: int,
     sel_x = top_k_select(utils, k - k_explore, available)
     sel_r = random_select(u, k_explore, available & ~sel_x)
     return sel_x | sel_r
+
+
+def temporal_uncertainty(stat: torch.Tensor, round_idx: int,
+                         last_round: torch.Tensor) -> torch.Tensor:
+    """Oort's staleness bonus: a device's statistical utility inflated by
+    sqrt(0.1·Δr), Δr the rounds since it last took part (never: since
+    round 0), in f32."""
+    dr = (round_idx - last_round.clamp_min(0)).clamp_min(0)
+    return stat * (1.0 + torch.sqrt(0.1 * dr.float()))

@@ -11,6 +11,11 @@ The kernel takes any K <= S: up to 8,192 devices in one launch of one
 block, above that in two (each tile of 8,192 devices hands on its K
 smallest keys, then one block selects over them), with scratch the
 wrapper allocates (`csrc/rewafl_select.cu`).
+
+`select_mask` is the round's selection (the kernel for the Eqn-2
+utility, the plain ranking for precomputed scores); `select_aggregate`
+the reference's fused select → gather → FedAvg pass, composed of this
+kernel and the `fedavg` one.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from repro_torch.core import selection as sel
 from repro_torch.core import utility as util
 from repro_torch.kernels import _build
+from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.rewafl_select import ref
 
 launches = 0   # kernel launches since the last reset (a plain counter)
@@ -94,20 +100,24 @@ def select_topk(available: torch.Tensor, ui: util.UtilityInputs,
     return _launch(available, ui, rnd, **kw)
 
 
-def mask_from_slots(idx: torch.Tensor, live: torch.Tensor, S: int) -> torch.Tensor:
-    """(S,) bool mask of the live slots. Dead slots scatter to the extra
-    index S, which is sliced off."""
-    m = torch.zeros(S + 1, dtype=torch.bool, device=idx.device)
-    m[torch.where(live > 0, idx, S).long()] = True
-    return m[:S]
-
-
 def select_mask(u: Optional[torch.Tensor], k: int, available: torch.Tensor,
-                eps: float, ui: util.UtilityInputs, *, T_round: float,
-                alpha: float, beta: float) -> torch.Tensor:
-    """(S,) ε-greedy selection mask over the Eqn-2 utility computed from
-    the `ui` leaves — the `rea` selector of the round. `u` is the (S,)
-    uniform explore draw (unused at ε = 0)."""
+                eps: float, *, scores: Optional[torch.Tensor] = None,
+                ui: Optional[util.UtilityInputs] = None, T_round: float = 1.0,
+                alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
+    """(S,) ε-greedy selection mask, scored by exactly one of:
+
+    * `ui`: the Eqn-2 utility computed from the five leaves, through the
+      selection kernel (the `rea` selector);
+    * `scores`: a precomputed (S,) utility (the oort and autofl
+      selectors), ranked by the plain `selection.epsilon_greedy` on
+      either device, as the reference ranks it with `lax.top_k` outside
+      any kernel.
+
+    `u` is the (S,) uniform explore draw (unused at ε = 0)."""
+    if (scores is None) == (ui is None):
+        raise ValueError("select_mask: pass exactly one of `scores` and `ui`")
+    if scores is not None:
+        return sel.epsilon_greedy(u, scores, k, available, eps)
     S = available.shape[-1]
     k_eff = min(k, S)
     if k_eff <= 0:
@@ -116,4 +126,35 @@ def select_mask(u: Optional[torch.Tensor], k: int, available: torch.Tensor,
     idx, live = select_topk(available, ui, u, k_exploit=k_eff - k_explore,
                             k_explore=k_explore, T_round=T_round,
                             alpha=alpha, beta=beta)
-    return mask_from_slots(idx, live, S)
+    return ref.mask_from_slots(idx, live, S)
+
+
+def select_aggregate(u: Optional[torch.Tensor], k: int, available: torch.Tensor,
+                     eps: float, ui: util.UtilityInputs, deltas: torch.Tensor,
+                     weights: torch.Tensor, *, T_round: float, alpha: float,
+                     beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused pass: Eqn-2 utility → ε-greedy top-K → weight-normalised
+    FedAvg of the K selected rows of the (S, P) `deltas` stack. Returns
+    ((S,) bool mask, (P,) f32 aggregate).
+
+    A composition of the two kernels, as the reference composes its two
+    Pallas kernels: the selection kernel gives (K,) idx and live flags,
+    a gather takes those K rows (K·P bytes, not S·P) and their weights
+    (zero on dead slots), and the fedavg kernel reduces them with the
+    weights normalised by max(Σw, 1e-9). CPU tensors run both plain
+    versions; on the card each kernel launches (and counts) or raises.
+    Nothing is selected and the aggregate is zero when k ≤ 0."""
+    S = available.shape[-1]
+    k_eff = min(k, S)
+    if k_eff <= 0:
+        return (torch.zeros_like(available),
+                deltas.new_zeros(deltas.shape[1:], dtype=torch.float32))
+    k_explore = sel._explore_slots(eps, k_eff)
+    idx, live = select_topk(available, ui, u, k_exploit=k_eff - k_explore,
+                            k_explore=k_explore, T_round=T_round,
+                            alpha=alpha, beta=beta)
+    rows = idx.long()
+    w = weights[rows].float() * (live > 0)
+    wn = w / w.sum().clamp_min(1e-9)
+    agg = fedavg_ops.weighted_aggregate(deltas[rows].float(), wn)
+    return ref.mask_from_slots(idx, live, S), agg

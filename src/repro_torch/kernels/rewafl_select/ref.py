@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import utility as util
+from repro_torch.core.selection import _explore_slots
 
 NEG = -1e30       # masking value for unavailable devices
 LIVE_THR = -1e29  # candidate values above this came from an available device
@@ -48,3 +49,33 @@ def select_topk(available: torch.Tensor, ui: util.UtilityInputs,
         idx.append(torch.where(r_live, ri[order], 0))
         live.append(r_live)
     return (torch.cat(idx).to(torch.int32), torch.cat(live).to(torch.int32))
+
+
+def mask_from_slots(idx: torch.Tensor, live: torch.Tensor, S: int) -> torch.Tensor:
+    """(S,) bool mask of the live slots. Dead slots scatter to the extra
+    index S, which is sliced off. `index_fill_` takes its value as a
+    kernel argument, so the mask can be built inside a CUDA graph."""
+    m = torch.zeros(S + 1, dtype=torch.bool, device=idx.device)
+    return m.index_fill_(0, torch.where(live > 0, idx, S).long(), True)[:S]
+
+
+def select_aggregate(u: Optional[torch.Tensor], k: int, available: torch.Tensor,
+                     eps: float, ui: util.UtilityInputs, deltas: torch.Tensor,
+                     weights: torch.Tensor, *, T_round: float, alpha: float,
+                     beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `ops.select_aggregate`, the unfused way of the
+    reference's `select_aggregate_ref`: the (S,) mask from `select_topk`,
+    then a weighted sum over all S rows of `deltas` with the unselected
+    weights zeroed and the rest normalised by max(Σw, 1e-9). Returns
+    ((S,) bool mask, (P,) f32 aggregate)."""
+    S = available.shape[-1]
+    k_eff = min(k, S)
+    mask = torch.zeros_like(available)
+    if k_eff > 0:
+        k_explore = _explore_slots(eps, k_eff)
+        mask = mask_from_slots(*select_topk(
+            available, ui, u, k_exploit=k_eff - k_explore, k_explore=k_explore,
+            T_round=T_round, alpha=alpha, beta=beta), S)
+    coef = torch.where(mask, weights, 0.0).float()
+    wn = coef / coef.sum().clamp_min(1e-9)
+    return mask, (deltas.float() * wn[:, None]).sum(0)

@@ -27,7 +27,8 @@ from repro_torch.core.policy import PolicyCfg
 from repro_torch.core.round import FLConfig, make_eval_fn
 from repro_torch.core.state import FleetState
 from repro_torch.data.partition import client_datasets
-from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.data.synthetic import (make_char_dataset, make_har_dataset,
+                                        make_image_dataset)
 from repro_torch.launch.engine import run_rounds
 from repro_torch.models.fl_models import make_fl_model
 from repro_torch.sim.devices import build_fleet
@@ -56,20 +57,34 @@ class RunResult:
 
 def build_task(task: str, n_clients: int, lam: float, *, per_client: int = 128,
                n_test: int = 512, seed: int = 0, device="cuda"):
-    """(cx (S, n, H, W, C) f32, cy (S, n) int64, test {"x", "y"}) on
-    `device`, drawn exactly as the reference draws them."""
+    """(cx (S, n, ...), cy (S, n) int64, test {"x", "y"}) on `device`,
+    drawn exactly as the reference draws them. Images and HAR windows
+    are f32 with λ-non-iid labels; the char task's cx are (S, n, T)
+    int64 ids, one role a client, its cy zeros (the LM loss reads x
+    only) and its test set the sequences of 4 further roles."""
     dev = resolve_device(device)
-    if task not in ("cnn@mnist", "cnn@cifar10"):
-        raise NotImplementedError(f"task {task!r} is not ported yet")
-    x, y = make_image_dataset(task.split("@")[1], n_clients * per_client + n_test,
-                              seed=seed)
-    tx, ty = x[-n_test:], y[-n_test:]
-    cx, cy = client_datasets(x[:-n_test], y[:-n_test], n_clients, lam,
-                             per_client, 10, seed=seed)
 
     def t(a, dtype=None):
         return torch.as_tensor(a, device=dev, dtype=dtype)
 
+    if task == "lstm@shakespeare":
+        seqs, _ = make_char_dataset(n_clients + 4, per_role=per_client, seed=seed)
+        cx = seqs[:n_clients]
+        tx = seqs[n_clients:].reshape(-1, seqs.shape[-1])[:n_test]
+        return (t(cx, torch.int64), t(np.zeros(cx.shape[:2]), torch.int64),
+                {"x": t(tx, torch.int64), "y": t(np.zeros(len(tx)), torch.int64)})
+    n = n_clients * per_client + n_test
+    if task in ("cnn@mnist", "cnn@cifar10"):
+        x, y = make_image_dataset(task.split("@")[1], n, seed=seed)
+        n_classes = 10
+    elif task == "cnn@har":
+        x, y = make_har_dataset(n, seed=seed)
+        n_classes = 6
+    else:
+        raise ValueError(task)
+    tx, ty = x[-n_test:], y[-n_test:]
+    cx, cy = client_datasets(x[:-n_test], y[:-n_test], n_clients, lam,
+                             per_client, n_classes, seed=seed)
     return (t(cx), t(cy, torch.int64),
             {"x": t(tx), "y": t(ty, torch.int64)})
 
@@ -102,8 +117,11 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
 
     Chunks never span more than `eval_every` rounds, so accuracy — and the
     early stop — is checked at least that often. `small` picks the
-    reference's width-reduced CNN and `quick_cfg`; `small=False` runs the
-    paper-scale CNN under the full `FLConfig`. Seeds follow the
+    reference's width-reduced model and `quick_cfg`; `small=False` runs the
+    paper-scale model under the full `FLConfig`. Tasks: cnn@mnist,
+    cnn@cifar10, cnn@har, lstm@shakespeare; methods: `core.methods.
+    METHODS` (random, oort, autofl, reafl, reafl_lupa, rewafl). Seeds
+    follow the
     reference: fleet and data from `seed`, the round noise generator from
     `seed + 1`, the model init from `seed + 2`.
 
@@ -198,7 +216,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chunk-size", type=int, default=8)
     ap.add_argument("--full-width", action="store_true",
-                    help="paper-scale CNN and FLConfig instead of the "
+                    help="paper-scale model and FLConfig instead of the "
                          "width-reduced proxy and quick_cfg")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")

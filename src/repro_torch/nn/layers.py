@@ -1,10 +1,14 @@
-"""The layers the FL CNN and the LLMs need, in the JAX package's
-parameter layout.
+"""The layers the FL models and the LLMs need, in the JAX package's
+parameter layout, with one exception.
 
 Parameters keep the reference's layout at every interface — dense
-weights (d_in, d_out), conv weights HWIO, activations NHWC, embedding
+weights (d_in, d_out), conv2d weights HWIO, activations NHWC, embedding
 tables (vocab, d) — so a parameter tree moves between the two packages
-leaf for leaf. The convolutions and matmuls themselves are plain
+leaf for leaf. The exception is the 1-D convolution of the HAR model:
+its weights are torch's (c_out, c_in, k), not the reference's
+(k, c_in, c_out), and its activations channels-first (B, C, T), so a
+forward permutes nothing; `models.fl_models.params_from_jax` /
+`params_to_jax` convert its weights. The convolutions and matmuls themselves are plain
 `torch.nn.functional` calls, as the reference leaves them to XLA. Norms
 and soft-caps compute in fp32 and cast back, as the reference does.
 """
@@ -114,6 +118,19 @@ def conv2d(params: Params, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1) + params["b"]
 
 
+def conv1d_init(gen: torch.Generator, c_in: int, c_out: int, k: int) -> Params:
+    """(c_out, c_in, k) weights, N(0, 1/(c_in·k)), zero bias."""
+    return {"w": normal_init(gen, (c_out, c_in, k), 1.0 / math.sqrt(c_in * k)),
+            "b": torch.zeros((c_out,), device=gen.device)}
+
+
+def conv1d(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Stride-1 'SAME' convolution over channels-first x (B, C, T), with
+    (c_out, c_in, k) weights — the reference's NTC/TIO `conv1d`, with
+    both layouts transposed."""
+    return F.conv1d(x, params["w"], params["b"], padding="same")
+
+
 def max_pool2d(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
     """'VALID' max pool over NHWC."""
     y = F.max_pool2d(x.permute(0, 3, 1, 2), k, stride)
@@ -159,3 +176,35 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d({"w": self.w, "b": self.b}, x)
+
+
+class Conv1d(nn.Module):
+    """Holds a (c_out, c_in, k) 1-D conv layer's parameters (see `Dense`)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(c_out, c_in, k, device="meta"))
+        self.b = nn.Parameter(torch.empty(c_out, device="meta"))
+
+    def init(self, gen: torch.Generator) -> Params:
+        c_out, c_in, k = self.w.shape
+        return conv1d_init(gen, c_in, c_out, k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1d({"w": self.w, "b": self.b}, x)
+
+
+class Embedding(nn.Module):
+    """Holds a (vocab, d) embedding table (see `Dense`); initialised
+    N(0, scale²)."""
+
+    def __init__(self, vocab: int, d: int, *, scale: float = 1.0):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(vocab, d, device="meta"))
+        self.scale = scale
+
+    def init(self, gen: torch.Generator) -> Params:
+        return embedding_init(gen, *self.table.shape, scale=self.scale)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embedding({"table": self.table}, ids)

@@ -508,3 +508,114 @@ def test_xlstm_serve_above_batch_16_matches_cpu(dev, param_dtype):
     rel = 5e-4 if param_dtype == "float32" else 3e-2
     scale = cpu.last_logits.abs().max().item()
     assert (cpu.last_logits - card.last_logits.cpu()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 10, 300, 100_000])
+@pytest.mark.parametrize("eps", [0.0, 0.1, 1.0])
+@pytest.mark.parametrize("case", ["random", "ties", "zeros", "under_k", "none"])
+def test_scores_path_on_the_card_matches_the_cpu(dev, S, eps, case):
+    """`select_mask(..., scores=)` (the oort and autofl selectors: the
+    plain ranking, no kernel) on the card against the CPU, bitwise."""
+    rng = np.random.RandomState(S + len(case))
+    K = min(20, S)
+    scores = rng.uniform(0, 1e3, S).astype(np.float32)
+    avail = rng.uniform(0, 1, S) >= 0.2
+    if case == "ties":
+        scores = np.round(rng.uniform(0, 2, S)).astype(np.float32)
+    elif case == "zeros":
+        scores[:] = 0.0
+    elif case == "under_k":
+        avail[:] = False
+        avail[rng.permutation(S)[:K // 2]] = True
+    elif case == "none":
+        avail[:] = False
+    u = rng.uniform(0, 1, S).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (u, avail, scores)]
+    before = select_ops.launches
+    got = select_ops.select_mask(args[0].to(dev), K, args[1].to(dev), eps,
+                                 scores=args[2].to(dev))
+    want = select_ops.select_mask(args[0], K, args[1], eps, scores=args[2])
+    assert select_ops.launches == before and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+def _aggregate_inputs(S, P, case, K, dev, seed):
+    avail, ui, rnd = _select_case(S, case, K, dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    deltas = torch.randn(S, P, generator=g, device=dev)
+    weights = torch.rand(S, generator=g, device=dev) + 0.5
+    return avail, ui, rnd, deltas, weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,P", [(100, 20, 206_922), (8193, 257, 4096), (30, 0, 64)])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["random", "ties", "under_k", "none"])
+def test_select_aggregate_matches_plain(dev, S, K, P, eps, case):
+    """The select kernel, a K-row gather and the fedavg kernel against the
+    plain dense version: masks bitwise, the aggregate within fedavg's
+    atol 1e-5; one launch of each kernel (none at K 0)."""
+    from repro_torch.kernels.rewafl_select import ops
+    avail, ui, rnd, deltas, weights = _aggregate_inputs(S, P, case, max(K, 1), dev, S + P)
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    before = select_ops.launches, fedavg_ops.launches
+    mask, agg = ops.select_aggregate(rnd, K, avail, eps, ui, deltas, weights, **kw)
+    pmask, pagg = select_ref.select_aggregate(rnd, K, avail, eps, ui, deltas, weights, **kw)
+    torch.cuda.synchronize()
+    n = int(K > 0)
+    assert (select_ops.launches, fedavg_ops.launches) == (before[0] + n, before[1] + n)
+    assert torch.equal(mask, pmask)
+    assert int(mask.sum()) == min(K, int(avail.sum()))
+    assert agg.shape == (P,) and agg.dtype == torch.float32
+    assert (agg - pagg).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task,method,probe_every", [
+    ("cnn@mnist", "random", 1), ("cnn@mnist", "oort", 1), ("cnn@mnist", "autofl", 1),
+    ("cnn@mnist", "rewafl", 2), ("cnn@har", "rewafl", 1),
+    ("lstm@shakespeare", "rewafl", 1), ("lstm@shakespeare", "oort", 1)])
+def test_round_on_the_card_matches_the_cpu(dev, task, method, probe_every):
+    """Two rounds of the round body on the card (kernels) and on the CPU
+    (plain versions) from the same fleet, data, params and draws:
+    selections bitwise, losses and costs within rtol 1e-3 (cuDNN and the
+    CPU sum in other orders); stat_util and fedavg launch once a round,
+    rewafl_select once for the rea methods and never for the others."""
+    import dataclasses
+
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import draw_noise, make_round_body
+    from repro_torch.core.state import init_fleet_state
+    from repro_torch.launch.fl_run import build_task, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet
+    S, K, n, R = 10, 4, 32, 2
+    cfg = dataclasses.replace(quick_cfg(K), probe_every=probe_every)
+    spec = METHODS[method]
+    model = make_fl_model(task, small=True)
+    params = model.init(torch.Generator().manual_seed(2))
+    H_max = cfg.policy.H0 if spec.policy == "fixed" else cfg.policy.H_max
+    gen = torch.Generator().manual_seed(1)
+    noise = [draw_noise(gen, S, K, H_max, cfg.batch_size, n) for _ in range(R)]
+    body = make_round_body(model, cfg, spec)
+    out = {}
+    for d in ("cpu", dev):
+        fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
+                            init_energy_std=0.04, e0_frac=0.08)
+        cx, cy, _ = build_task(task, S, 0.8, per_client=n, n_test=8, device=d)
+        p, st = {k: v.to(d) for k, v in params.items()}, init_fleet_state(fleet, H0=cfg.policy.H0)
+        before = (select_ops.launches, fedavg_ops.launches, stat_ops.launches)
+        ms = []
+        for r in range(R):
+            p, st, m = body(p, st, fleet, cx, cy, type(noise[r])(*(x.to(d) for x in noise[r])), r)
+            ms.append({k: v.cpu() for k, v in m.items()})
+        after = (select_ops.launches, fedavg_ops.launches, stat_ops.launches)
+        out[str(d)] = ms, [a - b for a, b in zip(after, before)]
+    (cpu, cpu_launches), (card, card_launches) = out["cpu"], out[str(dev)]
+    assert cpu_launches == [0, 0, 0]
+    assert card_launches == [R if spec.selector == "rea" else 0, R, R]
+    for a, b in zip(cpu, card):
+        assert torch.equal(a["selected"], b["selected"])
+        for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
+            torch.testing.assert_close(b[k], a[k], rtol=1e-3, atol=1e-5)

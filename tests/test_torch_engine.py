@@ -8,6 +8,9 @@ the float history within rtol 1e-4 (the CNN's sums run in other orders in
 the two frameworks, and eight rounds of SGD grow that last-bit drift);
 accuracy within one test sample.
 
+The same at 4 rounds for each baseline selector (random, oort, autofl)
+on the image task and for REWAFL on the HAR and char tasks.
+
 Also here: the CLI's stdout JSON, the default device, the options this
 slice does not port, and that the port imports neither JAX nor the JAX
 package.
@@ -42,30 +45,34 @@ S, K, ROUNDS, CHUNK, N_PER, N_TEST = 10, 4, 8, 4, 64, 512
 FLEET = dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08)
 
 
-def test_run_rounds_matches_reference():
-    seed, method = 0, "rewafl"
-    jmodel, model = j_make_model("cnn@mnist", small=True), make_fl_model("cnn@mnist", small=True)
+def _run_both(task, method, rounds, chunk, seed=0):
+    jmodel, model = j_make_model(task, small=True), make_fl_model(task, small=True)
     jfleet = j_build_fleet(S, seed=seed, **FLEET)
     fleet = build_fleet(S, seed=seed, device="cpu", **FLEET)
-    jcx, jcy, jtest = j_build_task("cnn@mnist", S, 0.8, per_client=N_PER, n_test=N_TEST)
-    cx, cy, test = build_task("cnn@mnist", S, 0.8, per_client=N_PER, n_test=N_TEST,
+    jcx, jcy, jtest = j_build_task(task, S, 0.8, per_client=N_PER, n_test=N_TEST)
+    cx, cy, test = build_task(task, S, 0.8, per_client=N_PER, n_test=N_TEST,
                               device="cpu")
     jcfg = j_quick_cfg(K)
     cfg = quick_cfg(K)
     jparams = jmodel.init(jax.random.PRNGKey(seed + 2))
     key = jax.random.PRNGKey(seed + 1)
     want = jengine.run_rounds(
-        jmodel, jfleet, jcx, jcy, jcfg, JMETHODS[method], rounds=ROUNDS, key=key,
-        params=jparams, ecfg=jengine.EngineCfg(chunk_size=CHUNK),
+        jmodel, jfleet, jcx, jcy, jcfg, JMETHODS[method], rounds=rounds, key=key,
+        params=jparams, ecfg=jengine.EngineCfg(chunk_size=chunk),
         eval_fn=j_make_eval_fn(jmodel, jtest["x"], jtest["y"]))
+    H_max = cfg.policy.H0 if METHODS[method].policy == "fixed" else cfg.policy.H_max
     got = run_rounds(
-        model, fleet, cx, cy, cfg, METHODS[method], rounds=ROUNDS,
-        params=params_from_jax(jparams, device="cpu"), chunk_size=CHUNK,
+        model, fleet, cx, cy, cfg, METHODS[method], rounds=rounds,
+        params=params_from_jax(jparams, device="cpu"), chunk_size=chunk,
         eval_fn=make_eval_fn(model, test["x"], test["y"]),
-        noise_fn=jax_noise_fn(key, S, K, cfg.policy.H_max, cfg.batch_size, N_PER),
+        noise_fn=jax_noise_fn(key, S, K, H_max, cfg.batch_size, N_PER),
         device="cpu")
-    assert got.rounds_run == want.rounds_run == ROUNDS
-    assert list(got.chunk_rounds) == list(want.chunk_rounds) == [CHUNK, CHUNK]
+    return got, want
+
+
+def _assert_runs_match(got, want, rounds, chunk):
+    assert got.rounds_run == want.rounds_run == rounds
+    assert list(got.chunk_rounds) == list(want.chunk_rounds) == [chunk] * (rounds // chunk)
     assert set(got.history) == set(want.history)
     np.testing.assert_array_equal(got.history["selected"], want.history["selected"])
     assert got.history["selected"].sum(1).max() <= K
@@ -74,13 +81,30 @@ def test_run_rounds_matches_reference():
             np.testing.assert_allclose(np.asarray(got.history[k], np.float64),
                                        np.asarray(v, np.float64), rtol=1e-4,
                                        atol=1e-6, err_msg=k)
-    assert len(got.acc_curve) == len(want.acc_curve) == ROUNDS // CHUNK
+    assert len(got.acc_curve) == len(want.acc_curve) == rounds // chunk
     np.testing.assert_allclose(got.acc_curve, want.acc_curve, atol=1 / N_TEST + 1e-9)
     for name in got.state._fields:
         np.testing.assert_allclose(
             np.asarray(getattr(got.state, name).numpy(), np.float64),
             np.asarray(getattr(want.state, name), np.float64), rtol=1e-4, atol=1e-6,
             err_msg=name)
+
+
+def test_run_rounds_matches_reference():
+    got, want = _run_both("cnn@mnist", "rewafl", ROUNDS, CHUNK)
+    _assert_runs_match(got, want, ROUNDS, CHUNK)
+
+
+@pytest.mark.parametrize("task,method", [
+    ("cnn@mnist", "random"), ("cnn@mnist", "oort"), ("cnn@mnist", "autofl"),
+    ("cnn@har", "rewafl"), ("lstm@shakespeare", "rewafl")])
+def test_run_rounds_matches_reference_for_each_method_and_task(task, method):
+    """Each baseline on the image task, and REWAFL on the HAR and char
+    tasks: 4 rounds in chunks of 2, `selected` bitwise every round; the
+    char task's accuracy is over the 512 test sequences' next-char
+    predictions."""
+    got, want = _run_both(task, method, 4, 2)
+    _assert_runs_match(got, want, 4, 2)
 
 
 def test_early_stop_at_chunk_boundary():
@@ -111,6 +135,16 @@ def test_cli_json_summary(capsys):
     assert out["scenario"] == "static-paper" and out["aggregation"] == "sync"
 
 
+@pytest.mark.parametrize("task,method", [("cnn@har", "oort"), ("lstm@shakespeare", "autofl"),
+                                         ("cnn@cifar10", "random")])
+def test_cli_runs_each_task_and_method(capsys, task, method):
+    fl_run.main(["--device", "cpu", "--task", task, "--method", method, "--rounds", "2",
+                 "--clients", "5", "--select", "2", "--chunk-size", "1", "--quiet"])
+    out = json.loads(capsys.readouterr().out)
+    assert (out["task"], out["method"], out["rounds"]) == (task, method, 2)
+    assert 0.0 <= out["final_acc"] <= 1.0 and out["overall_energy_kj"] > 0
+
+
 def test_run_fl_default_device_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -120,9 +154,7 @@ def test_run_fl_default_device_raises_without_a_gpu():
 
 @pytest.mark.parametrize("kw", [dict(scenario="commuter-diurnal"),
                                 dict(aggregation="async"),
-                                dict(telemetry="streaming"),
-                                dict(method="oort"), dict(method="random"),
-                                dict(task="lstm@shakespeare")])
+                                dict(telemetry="streaming")])
 def test_unported_options_raise(kw):
     args = dict(rounds=1, n_clients=4, n_select=2, device="cpu") | kw
     with pytest.raises(NotImplementedError):

@@ -2,6 +2,9 @@
 the reference's (`repro.core.round.make_round_body`, kernel_backend
 "xla"), on the CPU at small widths: the same fleet, data and params, and
 the reference's own random draws handed to the port as `RoundNoise`.
+Every method's selector (random, oort and autofl rank precomputed
+scores; the rea methods go through the selection kernel's plain
+version), and the global probe amortised over `probe_every` rounds.
 
 The port's round computes the selected devices' statistical utility
 through the `stat_util` kernel wrapper (its plain version for CPU
@@ -92,8 +95,13 @@ def setup():
     return jcfg, cfg
 
 
-def _run_one(setup, method, fleet_kw, key_seed, rounds=2):
+def _run_one(setup, method, fleet_kw, key_seed, rounds=2, probe_every=1,
+             n_dropped=0):
+    """`rounds` rounds of both bodies; the first `n_dropped` devices start
+    dropped."""
     jcfg, cfg = setup
+    jcfg = dataclasses.replace(jcfg, probe_every=probe_every)
+    cfg = dataclasses.replace(cfg, probe_every=probe_every)
     jmodel = j_make_model("cnn@mnist", small=True)
     model = make_fl_model("cnn@mnist", small=True)
     jfleet = j_build_fleet(S, seed=0, **fleet_kw)
@@ -105,10 +113,13 @@ def _run_one(setup, method, fleet_kw, key_seed, rounds=2):
     params = params_from_jax(jparams, device="cpu")
     jstate = j_init_state(jfleet, H0=2)
     state = init_fleet_state(fleet, H0=2)
+    if n_dropped:
+        jstate = jstate._replace(dropped=jnp.arange(S) < n_dropped)
+        state = state._replace(dropped=torch.arange(S) < n_dropped)
     env = init_env_state(jfleet)
     jbody = jax.jit(j_make_round_body(jmodel, jcfg, JMETHODS[method]))
     body = make_round_body(model, cfg, METHODS[method])
-    H_max = cfg.policy.H0 if method == "reafl" else cfg.policy.H_max
+    H_max = cfg.policy.H0 if METHODS[method].policy == "fixed" else cfg.policy.H_max
     key = jax.random.PRNGKey(key_seed)
     out = []
     for r in range(rounds):
@@ -121,17 +132,14 @@ def _run_one(setup, method, fleet_kw, key_seed, rounds=2):
     return out
 
 
-@pytest.mark.parametrize("method,fleet_kw,key_seed", [
-    ("rewafl", dict(init_energy_mean=0.3), 7),
-    # the benchmark's low-battery regime: devices fail and drop, so
-    # selection runs under-K and pad slots are exercised
-    ("rewafl", dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08), 3),
-    ("reafl", dict(init_energy_mean=0.3), 11),
-    ("reafl_lupa", dict(init_energy_mean=0.3), 5),
-])
-def test_round_matches_reference(setup, method, fleet_kw, key_seed):
-    for jparams, jstate, jm, params, state, m in _run_one(
-            setup, method, fleet_kw, key_seed):
+def _assert_rounds_match(out, fleet_sizes=None):
+    """Selections and slots bitwise, every float within ATOL/RTOL. With
+    `fleet_sizes`, `last_stat` is compared per sample, as last_stat/|B|:
+    it is |B|·rms(loss), and a loss near 0 is logz − gold, two numbers at
+    the logits' scale whose difference carries an absolute error of an
+    f32 ulp of them (~2e-7 to 5e-7) in either framework, which |B| ≈ 500
+    scales past ATOL."""
+    for jparams, jstate, jm, params, state, m in out:
         jsel = np.asarray(jm["selected"])
         np.testing.assert_array_equal(m["selected"].numpy(), jsel)
         jidx, jlive = j_select_slots(jnp.asarray(jsel), K)
@@ -142,6 +150,8 @@ def test_round_matches_reference(setup, method, fleet_kw, key_seed):
             got, want = getattr(state, name).numpy(), np.asarray(getattr(jstate, name))
             if want.dtype.kind in "biu":
                 np.testing.assert_array_equal(got, want, err_msg=name)
+            elif name == "last_stat" and fleet_sizes is not None:
+                assert_close(got / fleet_sizes, want / fleet_sizes)
             else:
                 assert_close(got, want)
         for layer, leaves in jparams.items():
@@ -153,6 +163,53 @@ def test_round_matches_reference(setup, method, fleet_kw, key_seed):
             assert_close(m[k].numpy(), jm[k])
 
 
+HIGH = dict(init_energy_mean=0.3)
+# the benchmark's low-battery fleet (over these 2 rounds no device drops:
+# the baseline test below drops devices to run selection under K)
+LOW = dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08)
+
+
+@pytest.mark.parametrize("method,fleet_kw,key_seed", [
+    ("rewafl", HIGH, 7),
+    ("rewafl", LOW, 3),
+    ("reafl", HIGH, 11),
+    ("reafl_lupa", HIGH, 5),
+])
+def test_round_matches_reference(setup, method, fleet_kw, key_seed):
+    _assert_rounds_match(_run_one(setup, method, fleet_kw, key_seed))
+
+
+@pytest.mark.parametrize("method,key_seed,n_dropped,probe_every,rounds", [
+    # the baselines: autofl's q_value and oort's stat start equal for
+    # every device (round 0 is all ties); oort and autofl explore
+    # round(0.1·K) = 1 slot; with 7 of 10 devices dropped, 3 < K remain
+    ("random", 13, 0, 1, 2),
+    ("random", 17, 7, 1, 2),
+    ("oort", 19, 0, 1, 2),
+    ("oort", 23, 7, 1, 2),
+    ("autofl", 29, 0, 1, 2),
+    ("autofl", 31, 7, 1, 2),
+    # the global probe every 2 and 3 rounds: the rounds between probes
+    # reuse the carried g_loss, the next probe refreshes it
+    ("rewafl", 37, 0, 2, 3),
+    ("rewafl", 41, 0, 3, 4),
+    ("oort", 43, 0, 2, 3),
+    ("oort", 47, 7, 3, 4),
+])
+def test_baseline_round_matches_reference(setup, method, key_seed, n_dropped,
+                                          probe_every, rounds):
+    out = _run_one(setup, method, HIGH, key_seed, rounds, probe_every, n_dropped)
+    sizes = build_fleet(S, seed=0, device="cpu", **HIGH).data_size.numpy()
+    _assert_rounds_match(out, fleet_sizes=sizes)
+    for *_, m in out:
+        n_sel = int(m["selected"].sum())
+        assert n_sel == min(K, int(m["n_available"])) and n_sel <= S - n_dropped
+    if probe_every > 1:     # g_loss is carried between probes
+        for r in range(1, rounds):
+            kept = torch.equal(out[r][4].g_loss, out[r - 1][4].g_loss)
+            assert kept == (r % probe_every != 0), r
+
+
 def test_select_slots_pads_like_nonzero():
     for sel in ([1, 0, 0, 1, 0, 1], [0] * 6, [1] * 6, [0, 0, 0, 0, 0, 1]):
         mask = np.asarray(sel, bool)
@@ -161,14 +218,3 @@ def test_select_slots_pads_like_nonzero():
             idx, live = select_slots(torch.from_numpy(mask), k)
             np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
             np.testing.assert_array_equal(live.numpy(), np.asarray(jlive))
-
-
-def test_unported_options_raise(setup):
-    _, cfg = setup
-    model = make_fl_model("cnn@mnist", small=True)
-    for name in ("random", "oort", "autofl"):
-        with pytest.raises(NotImplementedError):
-            make_round_body(model, cfg, METHODS[name])
-    with pytest.raises(NotImplementedError):
-        make_round_body(model, dataclasses.replace(cfg, probe_every=2),
-                        METHODS["rewafl"])

@@ -10,6 +10,16 @@ above 256 and K = S (which the CUDA kernel takes) are held against the
 oracle at S 300 and 4,096, and against the Pallas kernel at S 300. The
 CUDA kernel itself is held against the plain version on the card
 (`test_torch_cuda.py`).
+
+`select_mask`'s scores path (the oort and autofl selectors: no kernel in
+either package) is held bitwise against the reference's
+`select_mask(..., scores=)`. `select_aggregate` (the select kernel, a
+K-row gather and the fedavg kernel, composed) against the reference's
+Pallas composition in interpret mode at ε 0 (at ε > 0 each compile of
+the interpret kernel takes ~30 s) and against its oracle
+`select_aggregate_ref` at ε 0.1: masks bitwise, the aggregate within
+atol 1e-5 (fedavg's tolerance: the K-row and dense S-row sums add in
+other orders).
 """
 import jax
 import jax.numpy as jnp
@@ -67,7 +77,7 @@ def test_mask_matches_pallas_interpret_and_oracle(eps, S, case):
     u = np.array(jax.random.uniform(key, (S,)))    # the reference's draw
     kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
     ta, tui, tu = _port(avail, leaves, u)
-    got = ops.select_mask(tu, K, ta, eps, tui, **kw).numpy()
+    got = ops.select_mask(tu, K, ta, eps, ui=tui, **kw).numpy()
     jav, jui = jnp.asarray(avail), _jax_ui(leaves)
     want = jref.select_ref(key, K, jav, eps, jui, **kw)
     pallas = jops.select_mask(key, K, jav, eps, ui=jui, backend="pallas",
@@ -88,7 +98,7 @@ def test_large_k_mask_matches_oracle(eps, S, k, case):
     u = np.array(jax.random.uniform(key, (S,)))
     kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
     ta, tui, tu = _port(avail, leaves, u)
-    got = ops.select_mask(tu, k, ta, eps, tui, **kw).numpy()
+    got = ops.select_mask(tu, k, ta, eps, ui=tui, **kw).numpy()
     want = jref.select_ref(key, k, jnp.asarray(avail), eps, _jax_ui(leaves), **kw)
     np.testing.assert_array_equal(got, np.asarray(want))
     assert got.sum() == min(k, avail.sum()) and not (got & ~avail).any()
@@ -106,7 +116,7 @@ def test_large_k_mask_matches_pallas_interpret(k):
     for case in ("random", "ties", "under_k"):
         avail, leaves, _ = _case(k + len(case), S, case, k)
         ta, tui, tu = _port(avail, leaves, u)
-        got = ops.select_mask(tu, k, ta, 0.0, tui, **kw).numpy()
+        got = ops.select_mask(tu, k, ta, 0.0, ui=tui, **kw).numpy()
         pallas = jops.select_mask(key, k, jnp.asarray(avail), 0.0, ui=_jax_ui(leaves),
                                   backend="pallas", interpret=True, **kw)
         np.testing.assert_array_equal(got, np.asarray(pallas), err_msg=case)
@@ -147,7 +157,7 @@ def test_non_unit_exponents_match_oracle():
     kw = dict(T_round=60.0, alpha=2.0, beta=0.5)
     got = ops.select_mask(torch.from_numpy(np.array(jax.random.uniform(key, (150,)))),
                           K, torch.from_numpy(avail), 0.25,
-                          UtilityInputs(*map(torch.from_numpy, leaves)), **kw)
+                          ui=UtilityInputs(*map(torch.from_numpy, leaves)), **kw)
     want = jref.select_ref(key, K, jnp.asarray(avail), 0.25, _jax_ui(leaves), **kw)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
@@ -186,3 +196,121 @@ def test_wrapper_runs_plain_version_on_cpu_without_counting():
                           UtilityInputs(*(y.to("meta") for y in x))
                           for x in _port(avail, leaves, u)),
                         k_exploit=4, k_explore=1, T_round=60.0, alpha=1.0, beta=1.0)
+
+
+def _scores_case(seed, S, case, k):
+    """(scores, avail) as numpy; `case` adds ties (scores on three
+    values), all-zero scores, fewer than k available, or none."""
+    rng = np.random.RandomState(seed)
+    scores = rng.uniform(0, 1e3, S).astype(np.float32)
+    avail = rng.uniform(0, 1, S) >= 0.2
+    if case == "ties":
+        scores = np.round(rng.uniform(0, 2, S)).astype(np.float32)
+    elif case == "zeros":     # autofl's bandit before any reward, say
+        scores[:] = 0.0
+    elif case == "under_k":
+        avail[:] = False
+        avail[rng.permutation(S)[:max(0, k - 2)]] = True
+    elif case == "none":
+        avail[:] = False
+    return scores, avail
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "zeros", "under_k", "none"])
+@pytest.mark.parametrize("S", [1, 10, 300])
+@pytest.mark.parametrize("eps", [0.0, 0.1, 1.0])
+def test_scores_path_matches_reference(eps, S, case):
+    """`select_mask(..., scores=)` against the reference's: bitwise, for
+    K below, at and above the explore quota's rounding, ties to the
+    lower index."""
+    for k in sorted({1, 4, 20} | {S}):
+        scores, avail = _scores_case(S + k + len(case), S, case, k)
+        key = jax.random.PRNGKey(S * 31 + k)
+        u = torch.from_numpy(np.array(jax.random.uniform(key, (S,))))
+        got = ops.select_mask(u, k, torch.from_numpy(avail), eps,
+                              scores=torch.from_numpy(scores))
+        want = jops.select_mask(key, k, jnp.asarray(avail), eps,
+                                scores=jnp.asarray(scores), backend="xla")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=str(k))
+        assert got.sum() == min(k, S, avail.sum()) and not (got.numpy() & ~avail).any()
+
+
+def test_select_mask_takes_exactly_one_scoring():
+    avail, leaves, u = _case(0, 20, "random")
+    ta, tui, tu = _port(avail, leaves, u)
+    with pytest.raises(ValueError, match="exactly one"):
+        ops.select_mask(tu, 4, ta, 0.0)
+    with pytest.raises(ValueError, match="exactly one"):
+        ops.select_mask(tu, 4, ta, 0.0, scores=tu, ui=tui)
+
+
+def _aggregate_case(seed, S, P, case, k):
+    avail, leaves, _ = _case(seed, S, case, k)
+    rng = np.random.RandomState(seed + 1)
+    deltas = rng.standard_normal((S, P)).astype(np.float32)
+    weights = (rng.uniform(0, 1, S) + 0.5).astype(np.float32)
+    return avail, leaves, deltas, weights
+
+
+def _select_aggregate_both(key, k, eps, avail, leaves, deltas, weights, kw, **jkw):
+    S = avail.shape[0]
+    u = torch.from_numpy(np.array(jax.random.uniform(key, (S,))))
+    ta, tui, _ = _port(avail, leaves, u.numpy())
+    got = ops.select_aggregate(u, k, ta, eps, tui, torch.from_numpy(deltas),
+                               torch.from_numpy(weights), **kw)
+    plain = ref.select_aggregate(u, k, ta, eps, tui, torch.from_numpy(deltas),
+                                 torch.from_numpy(weights), **kw)
+    args = (key, k, jnp.asarray(avail), eps, _jax_ui(leaves), jnp.asarray(deltas),
+            jnp.asarray(weights))
+    want = (jops.select_aggregate(*args, **kw, **jkw) if jkw
+            else jref.select_aggregate_ref(*args, **kw))
+    return got, plain, want
+
+
+def _assert_aggregate(got, want, avail, k):
+    mask, agg = got
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(want[0]))
+    assert mask.dtype == torch.bool and agg.dtype == torch.float32
+    np.testing.assert_allclose(agg.numpy(), np.asarray(want[1]), rtol=0, atol=1e-5)
+    assert mask.sum() == min(k, avail.sum())
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "under_k"])
+@pytest.mark.parametrize("k", [0, 1, 8])
+def test_select_aggregate_matches_pallas_interpret(case, k):
+    """At ε 0: the reference's fused pass (the select kernel in interpret
+    mode, a K-row gather, its fedavg kernel in interpret mode)."""
+    S, P = 200, 48
+    avail, leaves, deltas, weights = _aggregate_case(k + len(case), S, P, case, 8)
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    got, plain, want = _select_aggregate_both(
+        jax.random.PRNGKey(k), k, 0.0, avail, leaves, deltas, weights, kw,
+        backend="pallas", interpret=True)
+    _assert_aggregate(got, want, avail, k)
+    _assert_aggregate(plain, want, avail, k)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "under_k"])
+@pytest.mark.parametrize("S,k", [(10, 4), (200, 8), (300, 257)])
+@pytest.mark.parametrize("eps", [0.0, 0.1])
+def test_select_aggregate_matches_oracle(eps, S, k, case):
+    """Against `select_aggregate_ref` (the dense masked S-row sum), with
+    explore slots at ε 0.1 and above 256 selected rows."""
+    avail, leaves, deltas, weights = _aggregate_case(S + k + len(case), S, 40, case, k)
+    kw = dict(T_round=60.0, alpha=2.0, beta=0.5)
+    got, plain, want = _select_aggregate_both(
+        jax.random.PRNGKey(S + k), k, eps, avail, leaves, deltas, weights, kw)
+    _assert_aggregate(got, want, avail, k)
+    _assert_aggregate(plain, want, avail, k)
+
+
+def test_select_aggregate_runs_plain_versions_on_cpu_without_counting():
+    from repro_torch.kernels.fedavg import ops as fedavg_ops
+    avail, leaves, deltas, weights = _aggregate_case(5, 30, 7, "random", 4)
+    ta, tui, tu = _port(avail, leaves, np.linspace(0, 1, 30, dtype=np.float32))
+    before = ops.launches, fedavg_ops.launches
+    mask, agg = ops.select_aggregate(tu, 4, ta, 0.5, tui, torch.from_numpy(deltas),
+                                     torch.from_numpy(weights), T_round=60.0,
+                                     alpha=1.0, beta=1.0)
+    assert (ops.launches, fedavg_ops.launches) == before
+    assert mask.shape == (30,) and agg.shape == (7,) and int(mask.sum()) == 4
