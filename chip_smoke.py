@@ -62,12 +62,20 @@ Phases, in order; any failure exits non-zero:
    rounds=6, eval_every=3)` with its launches counted from 0 (stat_util
    once a round, fedavg at least once, rewafl_select once a round for
    the rea methods and never for the others), finite history, 1 to 20
-   devices a round, and its steady ms/round (the second chunk); then
-   small runs on the card held against the same runs on the CPU (plain
-   versions, same draws) for rewafl, random, oort and autofl on
-   cnn@mnist, rewafl with the probe every 2 rounds, and rewafl on
-   cnn@har and lstm@shakespeare: selections bitwise, losses and costs
-   within rtol 1e-3; then `select_aggregate` (the select kernel, a
+   devices a round, and its steady ms/round (the second chunk); the
+   same run of rewafl on cnn@mnist under each fleet-dynamics scenario
+   (commuter-diurnal, congested-urban, overnight-charging, churn-heavy),
+   with no more devices available than online in any round, and the
+   online and charging counts moving under churn-heavy; then small runs
+   on the card held against the same runs on the CPU (plain versions,
+   same draws, environment draws included) for rewafl, random, oort and
+   autofl on cnn@mnist, rewafl with the probe every 2 rounds, rewafl on
+   cnn@har and lstm@shakespeare, rewafl under each dynamic scenario and
+   random under churn-heavy: selections and the charging, online and
+   available counts bitwise, losses and costs within rtol 1e-3; then
+   commuter-diurnal's round body from round 3,600 (every device in its
+   weekend) for 3 rounds on the card and on the CPU, held the same way,
+   the environment bitwise; then `select_aggregate` (the select kernel, a
    K-row gather and the fedavg kernel) against its plain version (the
    dense masked sum) at S 100, K 20, P 206,922 and S 8,193, K 257, P
    4,096, eps 0 and 0.1, ~30% and all but K/2 devices unavailable: masks
@@ -734,19 +742,31 @@ def phase_main_path(dev):
     return counts
 
 
-# (task, method, probe_every, rounds) of the card-against-CPU runs: the
-# main path's for 8 rounds, then each other selector, the probe every 2
-# rounds, and the HAR and char tasks for 4
-AGREE_RUNS = [("cnn@mnist", "rewafl", 1, 8), ("cnn@mnist", "random", 1, 4),
-              ("cnn@mnist", "oort", 1, 4), ("cnn@mnist", "autofl", 1, 4),
-              ("cnn@mnist", "rewafl", 2, 4), ("cnn@har", "rewafl", 1, 4),
-              ("lstm@shakespeare", "rewafl", 1, 4)]
+# (task, method, probe_every, rounds, scenario) of the card-against-CPU
+# runs: the main path's for 8 rounds, then each other selector, the probe
+# every 2 rounds, and the HAR and char tasks for 4; then rewafl on each
+# dynamic scenario, and random on churn-heavy, for 4
+DYNAMIC_SCENARIOS = ("commuter-diurnal", "congested-urban", "overnight-charging",
+                     "churn-heavy")
+AGREE_RUNS = [("cnn@mnist", "rewafl", 1, 8, "static-paper"),
+              ("cnn@mnist", "random", 1, 4, "static-paper"),
+              ("cnn@mnist", "oort", 1, 4, "static-paper"),
+              ("cnn@mnist", "autofl", 1, 4, "static-paper"),
+              ("cnn@mnist", "rewafl", 2, 4, "static-paper"),
+              ("cnn@har", "rewafl", 1, 4, "static-paper"),
+              ("lstm@shakespeare", "rewafl", 1, 4, "static-paper")] + [
+              ("cnn@mnist", "rewafl", 1, 4, sc) for sc in DYNAMIC_SCENARIOS] + [
+              ("cnn@mnist", "random", 1, 4, "churn-heavy")]
+# what a dynamic round must give bitwise on both devices, beside `selected`
+FLEET_COUNTS = ("n_charging", "n_online", "n_available")
 
 
 def phase_small_agreement(dev) -> None:
     """Small runs on the card against the same runs on the CPU: the same
-    fleet, data, params and draws; kernels on one side, plain versions on
-    the other. Selections bitwise, losses and costs within rtol 1e-3."""
+    fleet, data, params and draws (a dynamic scenario's initial and
+    per-round environment draws too); kernels on one side, plain versions
+    on the other. Selections and the fleet's counts bitwise, losses and
+    costs within rtol 1e-3."""
     import dataclasses
 
     from repro_torch.core.methods import METHODS
@@ -755,16 +775,20 @@ def phase_small_agreement(dev) -> None:
     from repro_torch.launch.fl_run import build_task, quick_cfg
     from repro_torch.models.fl_models import make_fl_model
     from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import get_scenario, init_env_state
     S, K, n = 10, 4, 32
-    for task, method, probe_every, R in AGREE_RUNS:
-        name = f"{task} {method}" + (f" probe_every={probe_every}" if probe_every > 1 else "")
-        spec = METHODS[method]
+    for task, method, probe_every, R, scenario in AGREE_RUNS:
+        name = (f"{task} {method}" + (f" probe_every={probe_every}" if probe_every > 1 else "")
+                + (f" {scenario}" if scenario != "static-paper" else ""))
+        spec, sc = METHODS[method], get_scenario(scenario)
         cfg = dataclasses.replace(quick_cfg(K), probe_every=probe_every)
         H_max = cfg.policy.H0 if spec.policy == "fixed" else cfg.policy.H_max
         model = make_fl_model(task, small=True)
         params = model.init(torch.Generator().manual_seed(2))
         gen = torch.Generator().manual_seed(1)
-        noise = [draw_noise(gen, S, K, H_max, cfg.batch_size, n) for _ in range(R)]
+        noise = [draw_noise(gen, S, K, H_max, cfg.batch_size, n, sc.dynamic)
+                 for _ in range(R)]
+        env_u = torch.rand(4, S, generator=torch.Generator().manual_seed(3))
         out = {}
         for d in ("cpu", dev):
             fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
@@ -774,11 +798,17 @@ def phase_small_agreement(dev) -> None:
                 model, fleet, cx, cy, cfg, spec, rounds=R,
                 params={k: v.to(d) for k, v in params.items()}, chunk_size=4,
                 eval_fn=make_eval_fn(model, test["x"], test["y"]),
-                noise_fn=lambda r, d=d: type(noise[r])(*(x.to(d) for x in noise[r])),
+                noise_fn=lambda r, d=d: noise[r].to(d), scenario=sc,
+                env=init_env_state(fleet, sc, env_u.to(d)),
                 device=d)
         a, b = out["cpu"], out[str(dev)]
         check(np.array_equal(a.history["selected"], b.history["selected"]),
               f"small run {name}: selections differ between the card and the CPU")
+        for k in FLEET_COUNTS:
+            check(np.array_equal(a.history[k], b.history[k]),
+                  f"small run {name}: {k} differs: {a.history[k]} vs {b.history[k]}")
+        for x, y in zip(a.env, b.env):
+            check(torch.equal(x, y.cpu()), f"small run {name}: the final environment differs")
         # cuDNN and the CPU sum convolutions in other orders; eight rounds of
         # SGD grow that last-bit difference to about 1e-4 relative
         rel = {}
@@ -804,21 +834,24 @@ METHOD_RUNS = [("cnn@mnist", m) for m in
 TASK_RUNS = [(t, m) for t in ("cnn@har", "lstm@shakespeare") for m in ("rewafl", "oort")]
 
 
-def phase_fl_run(dev, task: str, method: str) -> None:
-    """`run_fl(task, method)` at paper widths (S 100, K 20) on the card,
-    the launch counts set to 0 just before it and read just after:
-    stat_util once a round, fedavg at least once, rewafl_select once a
-    round for the rea methods and never for the others."""
+def phase_fl_run(dev, task: str, method: str, scenario: str = "static-paper") -> None:
+    """`run_fl(task, method, scenario=...)` at paper widths (S 100, K 20)
+    on the card, the launch counts set to 0 just before it and read just
+    after: stat_util once a round, fedavg at least once, rewafl_select
+    once a round for the rea methods and never for the others. On a
+    dynamic scenario, no more devices available than online each round;
+    on churn-heavy, the online and charging counts move."""
     from repro_torch.core.methods import METHODS
     from repro_torch.launch.fl_run import run_fl
     reset_launches()
     t0 = time.time()
     res = run_fl(task, method, small=False, n_clients=MAIN_S, n_select=MAIN_K,
-                 rounds=PATH_ROUNDS, eval_every=PATH_EVAL, device=dev)
+                 rounds=PATH_ROUNDS, eval_every=PATH_EVAL, scenario=scenario, device=dev)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = read_launches()
-    R, name = res.rounds_run, f"{task} {method}"
+    R = res.rounds_run
+    name = f"{task} {method}" + (f" {scenario}" if scenario != "static-paper" else "")
     check(R == PATH_ROUNDS, f"{name}: ran {R} rounds, not {PATH_ROUNDS}")
     n_select = R if METHODS[method].selector == "rea" else 0
     check(counts["stat_util"] == R and counts["rewafl_select"] == n_select
@@ -832,10 +865,77 @@ def phase_fl_run(dev, task: str, method: str) -> None:
     check(n_sel.shape == (R,) and 0 < int(n_sel.min()) and int(n_sel.max()) <= MAIN_K,
           f"{name}: devices selected per round {n_sel.tolist()} (K = {MAIN_K})")
     check(all(0.0 <= a <= 1.0 for a in res.acc_curve), f"{name}: accuracy {res.acc_curve}")
+    h = res.history
+    check(bool(np.all(h["n_available"] <= h["n_online"])),
+          f"{name}: available {h['n_available']} above online {h['n_online']}")
+    if scenario == "churn-heavy":
+        check(len(set(h["n_online"])) > 1 and len(set(h["n_charging"])) > 1,
+              f"{name}: online {h['n_online']} or charging {h['n_charging']} constant")
     steady = float(res.chunk_wall_s[-1]) / int(res.chunk_rounds[-1]) * 1e3
     print(f"fl_run {name}: {R} rounds in {wall:.2f} s, steady {steady:.1f} ms/round "
           f"(second chunk of {PATH_EVAL}, eval included), final accuracy "
-          f"{res.acc_curve[-1]:.4f}; launches {counts}", flush=True)
+          f"{res.acc_curve[-1]:.4f}; launches {counts}"
+          + (f"; online {h['n_online'].astype(int).tolist()}, charging "
+             f"{h['n_charging'].astype(int).tolist()}, available "
+             f"{h['n_available'].astype(int).tolist()}" if scenario != "static-paper" else ""),
+          flush=True)
+
+
+WEEKEND_ROUND = 3600   # 120 h at 2 minutes a round: every device's Saturday
+
+
+def phase_weekend(dev) -> None:
+    """commuter-diurnal's round body called directly for 3 rounds from
+    round 3,600, on the card and on the CPU from the same state and draws:
+    every device is in its weekend (the scenario's weekend multipliers
+    apply); selections, the fleet's counts and the environment bitwise,
+    losses and costs within rtol 1e-3."""
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import draw_noise, make_round_body
+    from repro_torch.core.state import init_fleet_state
+    from repro_torch.launch.fl_run import build_task, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import SCENARIOS, init_env_state
+    from repro_torch.sim.dynamics.diurnal import day_of_week, is_weekend
+    S, K, n, R = 10, 4, 32, 3
+    sc, cfg = SCENARIOS["commuter-diurnal"], quick_cfg(K)
+    model = make_fl_model("cnn@mnist", small=True)
+    params = model.init(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(1)
+    noise = [draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n, True)
+             for _ in range(R)]
+    env_u = torch.rand(4, S, generator=torch.Generator().manual_seed(3))
+    body = make_round_body(model, cfg, METHODS["rewafl"], sc)
+    out = {}
+    for d in ("cpu", dev):
+        fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.3)
+        cx, cy, _ = build_task("cnn@mnist", S, 0.8, per_client=n, n_test=8, device=d)
+        p, st = {k: v.to(d) for k, v in params.items()}, init_fleet_state(fleet, H0=cfg.policy.H0)
+        env = init_env_state(fleet, sc, env_u.to(d))
+        weekend = is_weekend(day_of_week(WEEKEND_ROUND, sc.minutes_per_round, env.phase_h))
+        check(bool(weekend.all()), f"weekend: devices outside the weekend at round "
+              f"{WEEKEND_ROUND}: {weekend.cpu().tolist()}")
+        ms = []
+        for r in range(WEEKEND_ROUND, WEEKEND_ROUND + R):
+            p, st, env, m = body(p, st, env, fleet, cx, cy, noise[r - WEEKEND_ROUND].to(d), r)
+            ms.append({k: v.cpu() for k, v in m.items()})
+        out[str(d)] = ms, [x.cpu() for x in env]
+    (cpu, cpu_env), (card, card_env) = out["cpu"], out[str(dev)]
+    for r, (a, b) in enumerate(zip(cpu, card)):
+        for k in ("selected",) + FLEET_COUNTS:
+            check(torch.equal(a[k], b[k]), f"weekend round {WEEKEND_ROUND + r}: {k} differs: "
+                  f"{a[k].tolist()} vs {b[k].tolist()}")
+        for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
+            check(torch.allclose(a[k], b[k], rtol=1e-3, atol=1e-5),
+                  f"weekend round {WEEKEND_ROUND + r}: {k} differs: {a[k]} vs {b[k]}")
+    check(all(torch.equal(x, y) for x, y in zip(cpu_env, card_env)),
+          "weekend: the environment differs between the card and the CPU")
+    print(f"weekend: commuter-diurnal rounds {WEEKEND_ROUND}-{WEEKEND_ROUND + R - 1}, every "
+          f"device in its weekend, on the card agree with the CPU (selections, "
+          f"{', '.join(FLEET_COUNTS)} and the environment bitwise; charging "
+          f"{[int(m['n_charging']) for m in card]}, online "
+          f"{[int(m['n_online']) for m in card]})", flush=True)
 
 
 # ------------------------------------------------------- select_aggregate
@@ -1227,7 +1327,12 @@ def main() -> None:
     # tasks, each its own path with the counts read just after it
     for task, method in METHOD_RUNS + TASK_RUNS:
         phase_fl_run(dev, task, method)
+    # the fleet-dynamics scenarios, each its own path with the counts read
+    # just after it
+    for scenario in DYNAMIC_SCENARIOS:
+        phase_fl_run(dev, "cnn@mnist", "rewafl", scenario)
     phase_small_agreement(dev)
+    phase_weekend(dev)
     agg = phase_select_aggregate(dev)
     print(f"time select_aggregate: composed {agg['ms']:.5f} ms (issued from Python "
           f"{agg['eager_ms']:.5f} ms), select_mask + slots + gather + "

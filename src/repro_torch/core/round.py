@@ -1,6 +1,8 @@
-"""Algorithm 1 — one synchronous FL round on the static-paper fleet.
+"""Algorithm 1 — one synchronous FL round.
 
-Per round: uplink rates from the injected fading draw → the global
+Per round: on a dynamic scenario, the fleet's environment steps first
+(channel migration, charging and drain, churn, recoverable dropout:
+`sim.dynamics`) → uplink rates from the injected fading draw → the global
 model's probe loss (every `probe_every` rounds) → per-device candidate H
 (policy) → latency/energy estimates → selection by the method's selector
 (`rea`: the Eqn-2 utility through the `rewafl_select` kernel op; random,
@@ -14,7 +16,8 @@ The round mirrors `repro.core.round.make_round_body` with faults,
 deadline, screen and async off. Two things differ by design:
 
 * Randomness is an argument. The round takes a `RoundNoise` (fading,
-  explore and minibatch draws) instead of a PRNG key, so a test can hand
+  explore and minibatch draws, and a dynamic scenario's environment
+  draws) instead of a PRNG key, so a test can hand
   it exactly the reference's draws; `launch.engine` draws it per round
   from a `torch.Generator`.
 * No host syncs. Slot padding is a sort, not `nonzero`; dead slots
@@ -39,8 +42,10 @@ from repro_torch.kernels.rewafl_select import ops as rsel_ops
 from repro_torch.kernels.stat_util import ops as stat_util_ops
 from repro_torch.models.fl_models import FLModel, Params
 from repro_torch.sim.devices import DeviceFleet
+from repro_torch.sim.dynamics import (EnvState, Scenario, effective_rate_mean,
+                                      step_env)
 from repro_torch.sim.energy import min_round_cost, round_costs
-from repro_torch.sim.wireless import sample_rates
+from repro_torch.sim.wireless import sample_rates, sample_rates_from_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,16 +72,25 @@ class RoundNoise(NamedTuple):
     fading_eps: torch.Tensor   # (S,) f32 standard normal: lognormal fading
     explore_u: torch.Tensor    # (S,) f32 uniform [0, 1): ε-greedy explore
     batch_idx: torch.Tensor    # (K, H_max, B) int64 in [0, n): minibatches
+    # (3, S) f32 uniform [0, 1): the environment step's channel, plug and
+    # online draws; None on a static scenario
+    env_u: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "RoundNoise":
+        return RoundNoise(*(None if x is None else x.to(device) for x in self))
 
 
 def draw_noise(gen: torch.Generator, S: int, K: int, H_max: int, B: int,
-               n: int) -> RoundNoise:
-    """Draw one round's noise on `gen`'s device."""
+               n: int, dynamic: bool = False) -> RoundNoise:
+    """Draw one round's noise on `gen`'s device; the environment draws
+    (dynamic scenarios) come after the others, so the static stream is
+    the same with or without them."""
     dev = gen.device
     return RoundNoise(
         fading_eps=torch.randn(S, generator=gen, device=dev),
         explore_u=torch.rand(S, generator=gen, device=dev),
-        batch_idx=torch.randint(0, n, (K, H_max, B), generator=gen, device=dev))
+        batch_idx=torch.randint(0, n, (K, H_max, B), generator=gen, device=dev),
+        env_u=torch.rand(3, S, generator=gen, device=dev) if dynamic else None)
 
 
 def _probe_losses(model: FLModel, params: Params, cx: torch.Tensor,
@@ -138,16 +152,27 @@ def select_slots(selected: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Te
     return torch.where(slot_live, v, 0), slot_live
 
 
-def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
-    """Returns round(params, state, fleet, cx, cy, noise, round_idx) ->
-    (params', state', metrics) for any selector (`random`, `oort`,
-    `autofl`, `rea`) and policy (`fixed`, `adah`, `rewa`). cx/cy: stacked
-    client data (S, n, ...); `round_idx` a Python int, so the
-    `probe_every` schedule is a plain `if`."""
+def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
+                    scenario: Optional[Scenario] = None):
+    """Returns round(params, state, env, fleet, cx, cy, noise, round_idx)
+    -> (params', state', env', metrics) for any selector (`random`,
+    `oort`, `autofl`, `rea`) and policy (`fixed`, `adah`, `rewa`). cx/cy:
+    stacked client data (S, n, ...); `round_idx` a Python int, so the
+    `probe_every` schedule is a plain `if`.
+
+    `scenario` (None ≡ static-paper) picks the fleet dynamics: a static
+    one carries `env` through untouched; a dynamic one steps it first
+    from `noise.env_u` and gates selection on `env.online`. Scenarios
+    with fault injection raise NotImplementedError (ROADMAP A11)."""
     if method.selector not in ("random", "oort", "autofl", "rea"):
         raise ValueError(f"unknown selector {method.selector!r}")
     if method.policy not in ("rewa", "fixed", "adah"):
         raise ValueError(f"unknown policy {method.policy!r}")
+    if scenario is not None and scenario.faults.enabled:
+        raise NotImplementedError(
+            f"scenario {scenario.name!r} injects faults, which are not "
+            "ported yet (ROADMAP A11)")
+    dyn = scenario is not None and scenario.dynamic
     K = cfg.n_select
     model_bits = float(cfg.uplink_bits or model.param_bits)
     pcfg = cfg.policy
@@ -156,12 +181,20 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
         cfg = dataclasses.replace(cfg, policy=dataclasses.replace(pcfg, H_max=pcfg.H0))
 
     @torch.no_grad()
-    def round_fn(params: Params, state: FleetState, fleet: DeviceFleet,
-                 cx: torch.Tensor, cy: torch.Tensor, noise: RoundNoise,
-                 round_idx: int):
+    def round_fn(params: Params, state: FleetState, env: EnvState,
+                 fleet: DeviceFleet, cx: torch.Tensor, cy: torch.Tensor,
+                 noise: RoundNoise, round_idx: int):
         S = fleet.n
         dev = cx.device
-        rates = sample_rates(noise.fading_eps, fleet)
+        if dyn:
+            env, state = step_env(scenario, fleet, env, state, round_idx,
+                                  noise.env_u, model_bits)
+            rate_mean = effective_rate_mean(env.channel_good, fleet)
+            rates = sample_rates_from_mean(noise.fading_eps, rate_mean,
+                                           fleet.rate_sigma)
+        else:
+            rate_mean = None
+            rates = sample_rates(noise.fading_eps, fleet)
 
         # --- global-model probe (amortised when probe_every > 1) ---------
         if cfg.probe_every <= 1 or round_idx % cfg.probe_every == 0:
@@ -184,7 +217,8 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
         costs = round_costs(fleet, H_cand, rates, model_bits)
 
         # --- utilities + selection (lines 13–16) ---------------------------
-        available = ~state.dropped
+        # churn gates selection like dropout, but is transient
+        available = (~state.dropped & env.online) if dyn else ~state.dropped
         u, eps = noise.explore_u, method.exploration
         if method.selector == "random":
             selected = sel.random_select(u, K, available)
@@ -257,7 +291,9 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
         new_q = scatter(state.q_value, q_sel, succ_k)
 
         # dropout: can no longer afford even H=1 + uplink at its mean rate
-        min_cost = min_round_cost(fleet, model_bits)
+        # (dynamic scenarios: the current channel's mean; the next round's
+        # environment step clears it once charging refills the battery)
+        min_cost = min_round_cost(fleet, model_bits, rate_mean)
         new_dropped = state.dropped | failed | (new_E - fleet.e0_reserve <= min_cost)
 
         new_state = FleetState(
@@ -280,14 +316,16 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec):
                                 / n_sel.clamp_min(1)),
             "global_loss": g_loss.mean(),
             "n_available": available.sum(),
-            "n_charging": torch.zeros((), dtype=torch.int64, device=dev),
-            "n_online": torch.full((), S, dtype=torch.int64, device=dev),
+            "n_charging": (env.charging.sum() if dyn else
+                           torch.zeros((), dtype=torch.int64, device=dev)),
+            "n_online": (env.online.sum() if dyn else
+                         torch.full((), S, dtype=torch.int64, device=dev)),
             "selected": selected,
             "H": new_H,
             "residual_energy": new_E,
             "staleness": new_u,
         }
-        return new_params, new_state, metrics
+        return new_params, new_state, env, metrics
 
     return round_fn
 

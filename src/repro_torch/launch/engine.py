@@ -11,6 +11,12 @@ at most chunk_size − 1 rounds.
 Each round's random numbers come from one `torch.Generator` on the
 device seeded from `seed`, or from `noise_fn(round_idx)` when given
 (the parity tests hand the port the reference's draws that way).
+
+`scenario` picks the fleet dynamics (None ≡ static-paper). A dynamic
+scenario's environment is carried across rounds and chunks; without an
+`env` argument its initial draws come from a generator of their own,
+seeded `seed + ENV_SEED_OFFSET`, so the rounds' stream does not move —
+the reference folds them from its loop key the same way.
 """
 from __future__ import annotations
 
@@ -28,10 +34,15 @@ from repro_torch.core.round import (FLConfig, RoundNoise, draw_noise,
 from repro_torch.core.state import FleetState, init_fleet_state
 from repro_torch.models.fl_models import FLModel, Params
 from repro_torch.sim.devices import DeviceFleet
+from repro_torch.sim.dynamics import EnvState, Scenario, init_env_state
 
 # the round's per-device leaves that dense history drops, as the
 # reference's does: only `selected` and `H` are kept as (R, S) traces
 DROPPED_PER_DEVICE = ("residual_energy", "staleness")
+
+# the initial environment's generator seed, past the rounds' (the
+# reference's side-channel salt for the same draw)
+ENV_SEED_OFFSET = 0x0d1f
 
 
 @dataclasses.dataclass
@@ -46,6 +57,7 @@ class EngineResult:
     # waits for the chunk) + rounds per chunk
     chunk_wall_s: Optional[np.ndarray] = None
     chunk_rounds: Optional[np.ndarray] = None
+    env: Optional[EnvState] = None   # final environment state
 
 
 def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
@@ -55,10 +67,13 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                eval_fn: Optional[Callable] = None,
                target_acc: Optional[float] = None,
                noise_fn: Optional[Callable[[int], RoundNoise]] = None,
+               scenario: Optional[Scenario] = None,
+               env: Optional[EnvState] = None,
                device="cuda") -> EngineResult:
     """Run up to `rounds` rounds in chunks of `chunk_size`, early-stopping
-    on `target_acc` (needs `eval_fn`) at chunk boundaries. Every tensor
-    argument must already be on `device`."""
+    on `target_acc` (needs `eval_fn`) at chunk boundaries, under
+    `scenario`'s fleet dynamics from `env`. Every tensor argument must
+    already be on `device`."""
     dev = resolve_device(device)
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
@@ -70,14 +85,21 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
     if state is None:
         state = init_fleet_state(fleet, H0=cfg.policy.H0)
-    body = make_round_body(model, cfg, method)
+    body = make_round_body(model, cfg, method, scenario)
+    dyn = scenario is not None and scenario.dynamic
+    if env is None:
+        u = None
+        if dyn:
+            env_gen = torch.Generator(device=dev).manual_seed(seed + ENV_SEED_OFFSET)
+            u = torch.rand(4, S, generator=env_gen, device=dev)
+        env = init_env_state(fleet, scenario, u)
     H_max = cfg.policy.H0 if method.policy == "fixed" else cfg.policy.H_max
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def noise(r: int) -> RoundNoise:
         if noise_fn is not None:
             return noise_fn(r)
-        return draw_noise(gen, S, cfg.n_select, H_max, cfg.batch_size, n)
+        return draw_noise(gen, S, cfg.n_select, H_max, cfg.batch_size, n, dyn)
 
     host: Dict[str, List[np.ndarray]] = {}
     acc_curve: List[float] = []
@@ -90,7 +112,8 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
         t0 = time.time()
         ms = []
         for r in range(done, done + length):
-            params, state, m = body(params, state, fleet, cx, cy, noise(r), r)
+            params, state, env, m = body(params, state, env, fleet, cx, cy,
+                                         noise(r), r)
             ms.append(m)
         for k in ms[0]:
             if k not in DROPPED_PER_DEVICE:   # one copy per key per chunk
@@ -113,4 +136,5 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                         rounds_run=done, reached_round=reached,
                         acc_curve=np.asarray(acc_curve, np.float64),
                         chunk_wall_s=np.asarray(chunk_wall, np.float64),
-                        chunk_rounds=np.asarray(chunk_len, np.int64))
+                        chunk_rounds=np.asarray(chunk_len, np.int64),
+                        env=env)

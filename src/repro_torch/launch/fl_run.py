@@ -2,11 +2,13 @@
 
 Builds the synthetic task, the device fleet, and runs FL rounds under a
 chosen PS method until target accuracy or a round budget, on a CUDA
-device by default. The port of `repro.launch.fl_run` for the
-static-paper, sync, dense-telemetry path.
+device by default. The port of `repro.launch.fl_run` for the sync,
+dense-telemetry path, on the static fleet and the four fault-free
+fleet-dynamics scenarios.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.fl_run \
-          --task cnn@mnist --method rewafl --rounds 100
+          --task cnn@mnist --method rewafl --rounds 100 \
+          [--scenario churn-heavy] [--probe-every 2]
 (`--device cpu` runs on the CPU; without a GPU the default raises.)
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.data.synthetic import (make_char_dataset, make_har_dataset,
 from repro_torch.launch.engine import run_rounds
 from repro_torch.models.fl_models import make_fl_model
 from repro_torch.sim.devices import build_fleet
+from repro_torch.sim.dynamics import SCENARIOS, get_scenario, init_env_state
 
 log = logging.getLogger(__name__)
 
@@ -110,8 +113,8 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
            seed: int = 0, per_client: int = 64, small: bool = True,
            fl_cfg: Optional[FLConfig] = None, fleet_kwargs: Optional[dict] = None,
            eval_every: int = 5, verbose: bool = False, chunk_size: int = 8,
-           scenario: str = "static-paper", aggregation: str = "sync",
-           telemetry: str = "dense",
+           scenario: str = "static-paper", probe_every: int = 1,
+           aggregation: str = "sync", telemetry: str = "dense",
            device="cuda") -> RunResult:
     """Run one FL campaign on `device` (a CUDA device by default).
 
@@ -120,19 +123,22 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     reference's width-reduced model and `quick_cfg`; `small=False` runs the
     paper-scale model under the full `FLConfig`. Tasks: cnn@mnist,
     cnn@cifar10, cnn@har, lstm@shakespeare; methods: `core.methods.
-    METHODS` (random, oort, autofl, reafl, reafl_lupa, rewafl). Seeds
-    follow the
-    reference: fleet and data from `seed`, the round noise generator from
-    `seed + 1`, the model init from `seed + 2`.
+    METHODS` (random, oort, autofl, reafl, reafl_lupa, rewafl);
+    scenarios: `sim.dynamics.SCENARIOS`. `probe_every` N > 1 probes the
+    global model every N rounds. Seeds follow the reference: fleet and
+    data from `seed`, the round noise generator from `seed + 1`, the
+    model init from `seed + 2`, a dynamic scenario's initial environment
+    from `seed + 3`.
 
-    Only the static-paper scenario, sync aggregation and dense telemetry
-    are ported; anything else raises NotImplementedError."""
-    for name, val, ported in (("scenario", scenario, "static-paper"),
-                              ("aggregation", aggregation, "sync"),
+    Only sync aggregation and dense telemetry are ported, and no
+    scenario with fault injection (lossy-uplink, flaky-fleet: ROADMAP
+    A11); those raise NotImplementedError."""
+    for name, val, ported in (("aggregation", aggregation, "sync"),
                               ("telemetry", telemetry, "dense")):
         if val != ported:
             raise NotImplementedError(f"{name}={val!r} is not ported yet "
                                       f"(only {ported!r})")
+    scen = get_scenario(scenario)
     dev = resolve_device(device)
     model = make_fl_model(task, small=small)
     # benchmark-scale default: the paper's low-initial-battery regime
@@ -143,13 +149,20 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
                               seed=seed, device=dev)
     cfg = fl_cfg or (quick_cfg(n_select, alpha, beta) if small else
                      FLConfig(n_select=n_select, alpha=alpha, beta=beta))
+    if probe_every != 1:
+        cfg = dataclasses.replace(cfg, probe_every=probe_every)
+    env_u = None
+    if scen.dynamic:
+        env_gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        env_u = torch.rand(4, n_clients, generator=env_gen, device=dev)
     res = run_rounds(
         model, fleet, cx, cy, cfg, METHODS[method], rounds=rounds,
         seed=seed + 1,
         params=model.init(torch.Generator(device=dev).manual_seed(seed + 2)),
         chunk_size=max(1, min(chunk_size, eval_every)),
         eval_fn=make_eval_fn(model, test["x"], test["y"]),
-        target_acc=target_acc, device=dev)
+        target_acc=target_acc, scenario=scen,
+        env=init_env_state(fleet, scen, env_u), device=dev)
     h = res.history
     if verbose:
         ends = np.cumsum(res.chunk_rounds) - 1
@@ -215,6 +228,13 @@ def main(argv=None) -> None:
     ap.add_argument("--beta", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chunk-size", type=int, default=8)
+    ap.add_argument("--scenario", default="static-paper",
+                    choices=sorted(SCENARIOS),
+                    help="fleet dynamics; lossy-uplink and flaky-fleet "
+                         "inject faults, not ported yet (they raise)")
+    ap.add_argument("--probe-every", type=int, default=1,
+                    help="re-probe the global model every N rounds "
+                         "(1 = every round, the paper's exact semantics)")
     ap.add_argument("--full-width", action="store_true",
                     help="paper-scale model and FLConfig instead of the "
                          "width-reduced proxy and quick_cfg")
@@ -230,8 +250,9 @@ def main(argv=None) -> None:
                  target_acc=args.target_acc, alpha=args.alpha,
                  beta=args.beta, seed=args.seed, small=not args.full_width,
                  verbose=not args.quiet, chunk_size=args.chunk_size,
+                 scenario=args.scenario, probe_every=args.probe_every,
                  device=args.device)
-    print(json.dumps(summary(res, scenario="static-paper", telemetry="dense",
+    print(json.dumps(summary(res, scenario=args.scenario, telemetry="dense",
                              aggregation="sync", wall_s=time.time() - t0),
                      indent=1))
 

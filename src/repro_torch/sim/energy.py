@@ -10,7 +10,7 @@ communication (footnote 3: DVFS non-linearity neglected, as in the paper):
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -27,11 +27,16 @@ class RoundCosts(NamedTuple):
     e_comm: torch.Tensor
 
 
-def min_round_cost(fleet: DeviceFleet, model_bits: float) -> torch.Tensor:
+def min_round_cost(fleet: DeviceFleet, model_bits: float,
+                   rate_mean: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(S,) J for the cheapest possible round (H=1, mean-rate uplink) —
-    the feasibility floor of the drop rule in `core.round`."""
+    the feasibility floor shared by the drop rule in `core.round` and the
+    recovery rule in `sim.dynamics.battery`. `rate_mean` overrides the
+    build-time mean (dynamic scenarios pass the channel state's mean)."""
+    if rate_mean is None:
+        rate_mean = fleet.rate_mean
     return (fleet.t_iter * fleet.p_compute
-            + rdiv(model_bits, fleet.rate_mean.clamp_min(1.0)) * fleet.p_tx)
+            + rdiv(model_bits, rate_mean.clamp_min(1.0)) * fleet.p_tx)
 
 
 def round_costs(fleet: DeviceFleet, H: torch.Tensor, rates: torch.Tensor,

@@ -590,6 +590,7 @@ def test_round_on_the_card_matches_the_cpu(dev, task, method, probe_every):
     from repro_torch.launch.fl_run import build_task, quick_cfg
     from repro_torch.models.fl_models import make_fl_model
     from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import init_env_state
     S, K, n, R = 10, 4, 32, 2
     cfg = dataclasses.replace(quick_cfg(K), probe_every=probe_every)
     spec = METHODS[method]
@@ -608,7 +609,7 @@ def test_round_on_the_card_matches_the_cpu(dev, task, method, probe_every):
         before = (select_ops.launches, fedavg_ops.launches, stat_ops.launches)
         ms = []
         for r in range(R):
-            p, st, m = body(p, st, fleet, cx, cy, type(noise[r])(*(x.to(d) for x in noise[r])), r)
+            p, st, _, m = body(p, st, init_env_state(fleet), fleet, cx, cy, noise[r].to(d), r)
             ms.append({k: v.cpu() for k, v in m.items()})
         after = (select_ops.launches, fedavg_ops.launches, stat_ops.launches)
         out[str(d)] = ms, [a - b for a, b in zip(after, before)]
@@ -617,5 +618,54 @@ def test_round_on_the_card_matches_the_cpu(dev, task, method, probe_every):
     assert card_launches == [R if spec.selector == "rea" else 0, R, R]
     for a, b in zip(cpu, card):
         assert torch.equal(a["selected"], b["selected"])
+        for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
+            torch.testing.assert_close(b[k], a[k], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["commuter-diurnal", "congested-urban",
+                                      "overnight-charging", "churn-heavy"])
+def test_dynamic_round_on_the_card_matches_the_cpu(dev, scenario):
+    """Two rounds of rewafl under a fleet-dynamics scenario on the card
+    and on the CPU from the same fleet, data, params, environment and
+    draws: selections, the environment and the charging, online and
+    available counts bitwise, losses and costs within rtol 1e-3; the
+    three FL kernels once a round on the card."""
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import draw_noise, make_round_body
+    from repro_torch.core.state import init_fleet_state
+    from repro_torch.launch.fl_run import build_task, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import SCENARIOS, init_env_state
+    S, K, n, R = 10, 4, 32, 2
+    cfg, sc = quick_cfg(K), SCENARIOS[scenario]
+    model = make_fl_model("cnn@mnist", small=True)
+    params = model.init(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(1)
+    noise = [draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n, True)
+             for _ in range(R)]
+    env_u = torch.rand(4, S, generator=torch.Generator().manual_seed(3))
+    body = make_round_body(model, cfg, METHODS["rewafl"], sc)
+    out = {}
+    for d in ("cpu", dev):
+        fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
+                            init_energy_std=0.04, e0_frac=0.08)
+        cx, cy, _ = build_task("cnn@mnist", S, 0.8, per_client=n, n_test=8, device=d)
+        p, st = {k: v.to(d) for k, v in params.items()}, init_fleet_state(fleet, H0=cfg.policy.H0)
+        env = init_env_state(fleet, sc, env_u.to(d))
+        before = (select_ops.launches, fedavg_ops.launches, stat_ops.launches)
+        ms = []
+        for r in range(R):
+            p, st, env, m = body(p, st, env, fleet, cx, cy, noise[r].to(d), r)
+            ms.append({k: v.cpu() for k, v in m.items()})
+        after = (select_ops.launches, fedavg_ops.launches, stat_ops.launches)
+        out[str(d)] = ms, [x.cpu() for x in env], [a - b for a, b in zip(after, before)]
+    (cpu, cpu_env, cpu_launches), (card, card_env, card_launches) = out["cpu"], out[str(dev)]
+    assert cpu_launches == [0, 0, 0] and card_launches == [R, R, R]
+    assert all(torch.equal(a, b) for a, b in zip(cpu_env, card_env))
+    for a, b in zip(cpu, card):
+        for k in ("selected", "n_charging", "n_online", "n_available"):
+            assert torch.equal(a[k], b[k]), k
         for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
             torch.testing.assert_close(b[k], a[k], rtol=1e-3, atol=1e-5)

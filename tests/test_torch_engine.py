@@ -11,9 +11,14 @@ accuracy within one test sample.
 The same at 4 rounds for each baseline selector (random, oort, autofl)
 on the image task and for REWAFL on the HAR and char tasks.
 
-Also here: the CLI's stdout JSON, the default device, the options this
-slice does not port, and that the port imports neither JAX nor the JAX
-package.
+`run_fl` of both packages with `probe_every=2`, the port's fed the
+reference's draws and initial params (`run_fl_with_reference_draws`):
+what `run_fl` itself builds — fleet, data, config, chunks, evaluation —
+must give the reference's run.
+
+Also here: the CLI's stdout JSON, `--scenario` and `--probe-every`, the
+default device, the options the port does not have yet, and that the
+port imports neither JAX nor the JAX package.
 """
 import ast
 import json
@@ -27,10 +32,13 @@ import torch
 from repro.core import METHODS as JMETHODS
 from repro.core.round import make_eval_fn as j_make_eval_fn
 from repro.launch import engine as jengine
+from repro.launch import fl_run as j_fl_run
 from repro.launch.fl_run import build_task as j_build_task
 from repro.launch.fl_run import quick_cfg as j_quick_cfg
 from repro.models.fl_models import make_fl_model as j_make_model
 from repro.sim.devices import build_fleet as j_build_fleet
+from repro.sim.dynamics import init_env_state as j_init_env_state
+from repro.sim.dynamics import get_scenario as j_get_scenario
 from repro_torch.core.methods import METHODS
 from repro_torch.core.round import make_eval_fn
 from repro_torch.launch import fl_run
@@ -38,6 +46,7 @@ from repro_torch.launch.engine import run_rounds
 from repro_torch.launch.fl_run import build_task, quick_cfg, run_fl
 from repro_torch.models.fl_models import make_fl_model, params_from_jax
 from repro_torch.sim.devices import build_fleet
+from repro_torch.sim.dynamics import EnvState, get_scenario, init_env_state
 from tests.test_torch_round import jax_noise_fn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -45,7 +54,10 @@ S, K, ROUNDS, CHUNK, N_PER, N_TEST = 10, 4, 8, 4, 64, 512
 FLEET = dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08)
 
 
-def _run_both(task, method, rounds, chunk, seed=0):
+def _run_both(task, method, rounds, chunk, seed=0, scenario="static-paper"):
+    """Both drivers on the same fleet, data, params and draws; on a
+    dynamic scenario the port is handed the reference's default initial
+    environment, drawn from `fold_in(key, 0x0d1f)`."""
     jmodel, model = j_make_model(task, small=True), make_fl_model(task, small=True)
     jfleet = j_build_fleet(S, seed=seed, **FLEET)
     fleet = build_fleet(S, seed=seed, device="cpu", **FLEET)
@@ -56,17 +68,22 @@ def _run_both(task, method, rounds, chunk, seed=0):
     cfg = quick_cfg(K)
     jparams = jmodel.init(jax.random.PRNGKey(seed + 2))
     key = jax.random.PRNGKey(seed + 1)
+    jsc, sc = j_get_scenario(scenario), get_scenario(scenario)
     want = jengine.run_rounds(
         jmodel, jfleet, jcx, jcy, jcfg, JMETHODS[method], rounds=rounds, key=key,
         params=jparams, ecfg=jengine.EngineCfg(chunk_size=chunk),
-        eval_fn=j_make_eval_fn(jmodel, jtest["x"], jtest["y"]))
+        eval_fn=j_make_eval_fn(jmodel, jtest["x"], jtest["y"]), scenario=jsc)
+    env = None
+    if sc.dynamic:
+        env = env_from_jax(j_init_env_state(jfleet, jsc,
+                                            key=jax.random.fold_in(key, 0x0d1f)))
     H_max = cfg.policy.H0 if METHODS[method].policy == "fixed" else cfg.policy.H_max
     got = run_rounds(
         model, fleet, cx, cy, cfg, METHODS[method], rounds=rounds,
         params=params_from_jax(jparams, device="cpu"), chunk_size=chunk,
         eval_fn=make_eval_fn(model, test["x"], test["y"]),
-        noise_fn=jax_noise_fn(key, S, K, H_max, cfg.batch_size, N_PER),
-        device="cpu")
+        noise_fn=jax_noise_fn(key, S, K, H_max, cfg.batch_size, N_PER, sc.dynamic),
+        scenario=sc, env=env, device="cpu")
     return got, want
 
 
@@ -152,13 +169,112 @@ def test_run_fl_default_device_raises_without_a_gpu():
         run_fl(rounds=1, n_clients=4, n_select=2)
 
 
-@pytest.mark.parametrize("kw", [dict(scenario="commuter-diurnal"),
+@pytest.mark.parametrize("kw", [dict(scenario="lossy-uplink"),
+                                dict(scenario="flaky-fleet"),
                                 dict(aggregation="async"),
                                 dict(telemetry="streaming")])
 def test_unported_options_raise(kw):
+    """The fault scenarios (fault injection: ROADMAP A11), async
+    aggregation and streaming telemetry are not ported yet."""
     args = dict(rounds=1, n_clients=4, n_select=2, device="cpu") | kw
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError) as err:
         run_fl(**args)
+    if "scenario" in kw:
+        assert "ROADMAP A11" in str(err.value)
+
+
+def env_from_jax(jenv) -> EnvState:
+    return EnvState(*(torch.from_numpy(np.array(x)) for x in jenv))
+
+
+def run_fl_with_reference_draws(monkeypatch, task="cnn@mnist", method="rewafl", *,
+                                scenario="static-paper", seed=0, **kw):
+    """`run_fl` of both packages on the CPU at S = 10, K = 4. The port's
+    `run_rounds` is wrapped so that it takes the reference's round draws
+    (`PRNGKey(seed + 1)`), initial params (`PRNGKey(seed + 2)`) and, on a
+    dynamic scenario, initial environment (`PRNGKey(seed + 3)`), after
+    checking that the port's own `run_fl` handed it the round seed
+    `seed + 1` and the environment drawn from a generator seeded
+    `seed + 3`. Returns (port's RunResult, reference's, the FLConfig the
+    port ran)."""
+    sc = get_scenario(scenario)
+    real, seen = fl_run.run_rounds, {}
+
+    def wrapped(model, fleet, cx, cy, cfg, spec, *, seed: int, params, env, **rkw):
+        S, n = cx.shape[0], cx.shape[1]
+        assert seed == seen["seed"] + 1
+        u = torch.rand(4, S, generator=torch.Generator().manual_seed(seen["seed"] + 3))
+        for got, want in zip(env, init_env_state(fleet, sc, u if sc.dynamic else None)):
+            assert torch.equal(got, want)
+        jfleet = j_build_fleet(S, seed=seen["seed"], **FLEET)
+        if sc.dynamic:
+            env = env_from_jax(j_init_env_state(jfleet, j_get_scenario(scenario),
+                                                key=jax.random.PRNGKey(seen["seed"] + 3)))
+        jparams = j_make_model(task, small=True).init(jax.random.PRNGKey(seen["seed"] + 2))
+        H_max = cfg.policy.H0 if spec.policy == "fixed" else cfg.policy.H_max
+        seen["cfg"] = cfg
+        return real(model, fleet, cx, cy, cfg, spec, seed=seed, env=env,
+                    params=params_from_jax(jparams, device="cpu"),
+                    noise_fn=jax_noise_fn(jax.random.PRNGKey(seen["seed"] + 1), S,
+                                          cfg.n_select, H_max, cfg.batch_size, n,
+                                          sc.dynamic), **rkw)
+
+    seen["seed"] = seed
+    monkeypatch.setattr(fl_run, "run_rounds", wrapped)
+    args = dict(rounds=8, n_clients=S, n_select=K, eval_every=4, seed=seed,
+                scenario=scenario, fleet_kwargs=FLEET) | kw
+    got = run_fl(task, method, device="cpu", **args)
+    want = j_fl_run.run_fl(task, method, **args)
+    return got, want, seen["cfg"]
+
+
+def assert_run_fl_match(got, want, training=True):
+    """Selections bitwise, the fleet's counts exactly, the float history
+    within rtol 1e-4, accuracy within one test sample. `training=False`
+    leaves out what only the trained model sets (the global loss and the
+    accuracy)."""
+    assert got.rounds_run == want.rounds_run
+    for k in ("sel_count", "H_trace"):
+        np.testing.assert_array_equal(got.history[k], want.history[k], err_msg=k)
+    for k in ("n_charging", "n_online", "n_available", "n_dropped",
+              "n_participating", "n_failed"):
+        np.testing.assert_array_equal(got.history[k], np.asarray(want.history[k],
+                                                                 np.float64), err_msg=k)
+    for k in ("round_latency", "round_energy", "mean_H_selected", "residual_energy") + (
+            ("global_loss",) if training else ()):
+        np.testing.assert_allclose(got.history[k], np.asarray(want.history[k], np.float64),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    if training:
+        np.testing.assert_allclose(got.acc_curve, want.acc_curve, atol=1 / N_TEST + 1e-9)
+    assert got.dropout_ratio == want.dropout_ratio
+
+
+def test_run_fl_probe_every_matches_reference(monkeypatch):
+    """`run_fl(probe_every=2)` sets the config's `probe_every` as the
+    reference's does, and the run matches the reference's: between
+    probes the carried global loss repeats."""
+    got, want, cfg = run_fl_with_reference_draws(monkeypatch, probe_every=2)
+    assert cfg.probe_every == 2 and cfg.batch_size == quick_cfg(K).batch_size
+    assert_run_fl_match(got, want)
+    gl = got.history["global_loss"]
+    assert np.all(gl[1::2] == gl[0::2])
+
+
+def test_cli_scenario_and_probe_every(capsys, monkeypatch):
+    real, seen = fl_run.run_rounds, {}
+
+    def wrapped(*a, **kw):
+        seen["probe_every"], seen["scenario"] = a[4].probe_every, kw["scenario"].name
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fl_run, "run_rounds", wrapped)
+    fl_run.main(["--device", "cpu", "--scenario", "churn-heavy", "--probe-every", "2",
+                 "--rounds", "3", "--clients", "6", "--select", "2", "--chunk-size", "2",
+                 "--quiet"])
+    out = json.loads(capsys.readouterr().out)
+    assert set(out) == CLI_KEYS
+    assert out["scenario"] == "churn-heavy" and out["rounds"] == 3
+    assert seen == {"probe_every": 2, "scenario": "churn-heavy"}
 
 
 def _imports(path: pathlib.Path):

@@ -41,15 +41,25 @@ from repro_torch.core.state import init_fleet_state
 from repro_torch.launch.fl_run import build_task
 from repro_torch.models.fl_models import make_fl_model, params_from_jax
 from repro_torch.sim.devices import build_fleet
+from repro_torch.sim.dynamics import init_env_state as t_init_env_state
 
 ATOL, RTOL = 1e-5, 1e-5
 
 
-def round_noise_from_key(kr, S, K, H_max, B, n) -> RoundNoise:
+def round_noise_from_key(kr, S, K, H_max, B, n, dynamic=False) -> RoundNoise:
     """The draws the reference round makes from its round key `kr`
     (`core/round.py:232`, `sim/wireless.py:14`, `core/selection.py:38`,
-    `core/round.py:121-122,396`), as the port's RoundNoise."""
-    k_rate, k_sel, k_train = jax.random.split(kr, 3)
+    `core/round.py:121-122,396`), as the port's RoundNoise. `dynamic`:
+    the key splits in four, the first for the environment step, which
+    splits it in three for its channel, plug and online uniforms
+    (`core/round.py:227`, `sim/dynamics/env.py:79`)."""
+    env_u = None
+    if dynamic:
+        k_env, k_rate, k_sel, k_train = jax.random.split(kr, 4)
+        env_u = torch.from_numpy(np.array(jnp.stack(
+            [jax.random.uniform(k, (S,)) for k in jax.random.split(k_env, 3)])))
+    else:
+        k_rate, k_sel, k_train = jax.random.split(kr, 3)
     eps = jax.random.normal(k_rate, (S,))
     u = jax.random.uniform(k_sel, (S,))
     its = jnp.arange(H_max)
@@ -58,10 +68,10 @@ def round_noise_from_key(kr, S, K, H_max, B, n) -> RoundNoise:
     )(its))(jax.random.split(k_train, K))
     return RoundNoise(torch.from_numpy(np.array(eps)),
                       torch.from_numpy(np.array(u)),
-                      torch.from_numpy(np.array(bidx, np.int64)))
+                      torch.from_numpy(np.array(bidx, np.int64)), env_u)
 
 
-def jax_noise_fn(key, S, K, H_max, B, n):
+def jax_noise_fn(key, S, K, H_max, B, n, dynamic=False):
     """noise_fn for the port's run_rounds reproducing the reference
     engine's per-round `key, kr = split(key)` chain (engine.py:349)."""
     rounds = []
@@ -70,7 +80,7 @@ def jax_noise_fn(key, S, K, H_max, B, n):
         nonlocal key
         while len(rounds) <= r:
             key, kr = jax.random.split(key)
-            rounds.append(round_noise_from_key(kr, S, K, H_max, B, n))
+            rounds.append(round_noise_from_key(kr, S, K, H_max, B, n, dynamic))
         return rounds[r]
 
     return fn
@@ -116,7 +126,7 @@ def _run_one(setup, method, fleet_kw, key_seed, rounds=2, probe_every=1,
     if n_dropped:
         jstate = jstate._replace(dropped=jnp.arange(S) < n_dropped)
         state = state._replace(dropped=torch.arange(S) < n_dropped)
-    env = init_env_state(jfleet)
+    env, tenv = init_env_state(jfleet), t_init_env_state(fleet)
     jbody = jax.jit(j_make_round_body(jmodel, jcfg, JMETHODS[method]))
     body = make_round_body(model, cfg, METHODS[method])
     H_max = cfg.policy.H0 if METHODS[method].policy == "fixed" else cfg.policy.H_max
@@ -127,7 +137,7 @@ def _run_one(setup, method, fleet_kw, key_seed, rounds=2, probe_every=1,
         jparams, jstate, env, jm = jbody(jparams, jstate, env, jfleet, jcx, jcy,
                                          kr, jnp.asarray(r, jnp.int32))
         noise = round_noise_from_key(kr, S, K, H_max, 4, N_PER)
-        params, state, m = body(params, state, fleet, cx, cy, noise, r)
+        params, state, tenv, m = body(params, state, tenv, fleet, cx, cy, noise, r)
         out.append((jparams, jstate, jm, params, state, m))
     return out
 
