@@ -19,9 +19,12 @@ Phases, in order; any failure exits non-zero:
    wrapper's plan, and the names torch.profiler sees): `select_one` alone
    at S 100, `select_tiles` and `select_merge` at S 1e6;
 4. fedavg against its plain version: (20, 206,922) f32, contiguous as
-   the round keeps it and with rows padded to a multiple of 4 (the
+   the round keeps it, (30, 206,922) f32 as the async buffer holds it
+   (buffer_m 10 + K 20 slots), rows padded to a multiple of 4 (the
    kernel's vector path), a ragged unaligned stack, and bf16; f32 within
-   atol 1e-5 (the sum order differs), bf16 within 0.05;
+   atol 1e-5 (the sum order differs), bf16 within 0.05; and the async
+   buffer with one row of NaNs at weight 0 (a stale dead slot): NaN at
+   the same positions on both sides, as 0 · NaN is NaN;
 5. flash_attention against its plain version: llama heads (H 24, n_kv 8,
    hd 128) causal at S in {17, 128, 2048}, gemma2 heads (H 32, n_kv 16)
    with window 64 and softcap 50 and as a global layer, granite's MQA,
@@ -51,8 +54,8 @@ Phases, in order; any failure exits non-zero:
    the same timer (`zero_()` on one element, `launch_floor_ms`); for
    slstm also the floor of its 2,048 sequential steps, the exchange of h
    between a cluster's blocks alone on the same clusters; rewafl_select
-   at S 100 and 1e6, and at S in {100, 128, 192, 256, 512, 1024} with
-   the keys ranked by counting against the radix select;
+   at S 100 and 1e6, stat_util at S 1e6, and fedavg at the async land's
+   (30, 206,922);
 7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after (stat_util once a round); then
@@ -75,7 +78,21 @@ Phases, in order; any failure exits non-zero:
    available counts bitwise, losses and costs within rtol 1e-3; then
    commuter-diurnal's round body from round 3,600 (every device in its
    weekend) for 3 rounds on the card and on the CPU, held the same way,
-   the environment bitwise; then `select_aggregate` (the select kernel, a
+   the environment bitwise; then the async and fault paths at full
+   width, each `run_fl("cnn@mnist", "rewafl", small=False, n_clients=100,
+   n_select=20, rounds=6, eval_every=3, ...)` with its launches counted
+   from 0 (rewafl_select and stat_util once a round, fedavg once a round
+   sync and 1 + ceil(K / M) async) and finite history and parameters:
+   async at the defaults (M 10, wall delays: fewer than M pending at every
+   round end, dispatched = landed + pending, a clock that never goes
+   back), async at M = K with unit delays beside the sync run of the same
+   call (selections and counters equal, losses within rtol 1e-3),
+   lossy-uplink (uploads lost), flaky-fleet sync and async (aborts,
+   corruptions and rejections); then small async and fault runs on the
+   card against the CPU (async M 2 with delay jitter, M = K unit, a slot
+   TTL under 50x stragglers, lossy-uplink, flaky-fleet, flaky-fleet
+   async): selections and every integer counter bitwise, losses, costs
+   and the virtual clock within rtol 1e-3; then `select_aggregate` (the select kernel, a
    K-row gather and the fedavg kernel) against its plain version (the
    dense masked sum) at S 100, K 20, P 206,922 and S 8,193, K 257, P
    4,096, eps 0 and 0.1, ~30% and all but K/2 devices unavailable: masks
@@ -240,9 +257,9 @@ def select_inputs(S: int, case: str, seed: int, dev, K: int = MAIN_K):
         blk = perm[:min(S, 2 * K)]
         stat[blk], t[blk], e[blk] = 1e4, 1.0, 10.0
         residual[blk], e0[blk], rnd[blk] = 6e4, 100.0, 0.999
-    elif case == "nan":       # NaN utilities rank first and are dead
+    elif case == "nan":       # NaN utilities rank last and are live
         stat[perm[:max(1, S // 10)]] = float("nan")
-    elif case == "negzero":   # -0 and +0 utilities tie: the lower index first
+    elif case == "negzero":   # -0 and +0 utilities: +0 ranks first (total order)
         blk = perm[:max(1, S // 4)]
         stat[blk[::2]] = -0.0
         e[blk[1::2]] = 1e9    # e above the headroom: utility +0
@@ -357,6 +374,7 @@ def time_launch_floor() -> float:
 # ------------------------------------------------------------------- fedavg
 
 FEDAVG_K, FEDAVG_P = 20, 206_922   # cnn@mnist at full width
+ASYNC_SLOTS = 10 + FEDAVG_K        # the async buffer: buffer_m 10 + K slots
 
 
 def fedavg_inputs(K: int, P: int, layout: str, dtype, seed: int, dev):
@@ -382,6 +400,7 @@ def phase_fedavg(dev) -> float:
     P = FEDAVG_P
     cases = [  # (name, K, P, layout, dtype, atol)
         ("main f32, contiguous", FEDAVG_K, P, "contiguous", torch.float32, 1e-5),
+        ("async buffer f32", ASYNC_SLOTS, P, "contiguous", torch.float32, 1e-5),
         ("f32 padded rows", FEDAVG_K, P, "padded", torch.float32, 1e-5),
         ("ragged unaligned f32", 7, 1001, "unaligned", torch.float32, 1e-5),
         ("bf16 contiguous", FEDAVG_K, P, "contiguous", torch.bfloat16, 0.05),
@@ -404,9 +423,29 @@ def phase_fedavg(dev) -> float:
     return main_err
 
 
-def time_fedavg(dev) -> dict:
+def phase_fedavg_nan(dev) -> None:
+    """The async buffer with one row holding NaNs at weight 0 (a stale
+    dead slot): 0 · NaN = NaN, so the kernel and its plain version both
+    give NaN at that row's NaN positions and agree elsewhere."""
     from repro_torch.kernels.fedavg import ops, ref
-    K, P = FEDAVG_K, FEDAVG_P
+    x, w = fedavg_inputs(ASYNC_SLOTS, FEDAVG_P, "contiguous", torch.float32, 61, dev)
+    x[7, ::7] = float("nan")
+    w[7] = 0.0
+    got, want = ops.weighted_aggregate(x, w), ref.weighted_aggregate(x, w)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan) and int(nan.sum()) == -(-FEDAVG_P // 7),
+          f"fedavg NaN row: NaN at {int(torch.isnan(got).sum())} positions, plain "
+          f"{int(nan.sum())}")
+    err = (got[~nan] - want[~nan]).abs().max().item()
+    check(err <= 1e-5, f"fedavg NaN row: max |kernel - plain| off the NaNs = {err}")
+    print(f"fedavg NaN row at weight 0: K={ASYNC_SLOTS} P={FEDAVG_P}, NaN at the same "
+          f"{int(nan.sum())} positions in both, max_abs_err elsewhere {err:.3g}", flush=True)
+
+
+def time_fedavg(dev, K: int = FEDAVG_K) -> dict:
+    from repro_torch.kernels.fedavg import ops, ref
+    P = FEDAVG_P
     # the round's contiguous stack: P = 206,922 is not a multiple of 4, so
     # the kernel takes its scalar path; padded rows take the vector path
     x, w = fedavg_inputs(K, P, "contiguous", torch.float32, 99, dev)
@@ -938,6 +977,182 @@ def phase_weekend(dev) -> None:
           f"{[int(m['n_online']) for m in card]})", flush=True)
 
 
+# ----------------------------------------- async aggregation and faults
+
+def fedavg_per_round(aggregation: str, buffer_m: int = 10) -> int:
+    """fedavg launches a round: the sync aggregate once; async, the first
+    land's sync fast path and one aggregate per land (ceil(K / M))."""
+    return 1 if aggregation == "sync" else 1 + -(-MAIN_K // buffer_m)
+
+
+def phase_chaos_run(dev, name: str, scenario: str = "static-paper", **kw):
+    """`run_fl("cnn@mnist", "rewafl", small=False, n_clients=100,
+    n_select=20, rounds=6, eval_every=3, scenario=..., **kw)` on the card,
+    the launch counts set to 0 just before it and read just after:
+    rewafl_select and stat_util once a round, fedavg `fedavg_per_round`
+    times; finite history and parameters. Returns the RunResult."""
+    from repro_torch.launch.fl_run import run_fl
+    reset_launches()
+    t0 = time.time()
+    res = run_fl("cnn@mnist", "rewafl", small=False, n_clients=MAIN_S, n_select=MAIN_K,
+                 rounds=PATH_ROUNDS, eval_every=PATH_EVAL, scenario=scenario, device=dev,
+                 **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_launches()
+    R = res.rounds_run
+    per = fedavg_per_round(kw.get("aggregation", "sync"), kw.get("buffer_m") or MAIN_K // 2)
+    check(R == PATH_ROUNDS, f"{name}: ran {R} rounds, not {PATH_ROUNDS}")
+    check(counts == {"rewafl_select": R, "fedavg": per * R, "flash_attention": 0,
+                     "slstm": 0, "stat_util": R},
+          f"{name}: launches {counts} in {R} rounds (fedavg should launch {per} a round)")
+    for k, v in res.history.items():
+        check(bool(np.all(np.isfinite(np.asarray(v, np.float64)))),
+              f"{name}: history {k!r} has non-finite values")
+    check(all(bool(torch.isfinite(v).all()) for v in res.final_params.values()),
+          f"{name}: the global parameters are not finite")
+    steady = float(res.chunk_wall_s[-1]) / int(res.chunk_rounds[-1]) * 1e3
+    h = res.history
+    extra = {k: h[k].astype(int).tolist() for k in
+             ("n_aborted", "n_lost", "n_corrupted", "n_straggler", "n_rejected",
+              "n_landed", "n_pending") if k in h}
+    print(f"fl_run {name}: {R} rounds in {wall:.2f} s, steady {steady:.1f} ms/round "
+          f"(second chunk of {PATH_EVAL}, eval included), final accuracy "
+          f"{res.acc_curve[-1]:.4f}; launches {counts} ({per} fedavg a round)"
+          + (f"; wall_clock {res.wall_clock_s:.1f} s" if res.wall_clock_s else "")
+          + (f"; {json.dumps(extra)}" if extra else ""), flush=True)
+    return res, counts
+
+
+def phase_async_and_faults(dev) -> dict:
+    """The async and fault paths at full width, each its own path with the
+    counts read just after it: async at the defaults (M 10, wall delays);
+    async at M = K with unit delays beside the sync run of the same call
+    (selections and counters bitwise, losses within rtol 1e-3);
+    lossy-uplink (uploads lost); flaky-fleet sync and async (aborts,
+    corruptions and rejections). Returns the launch counts by path."""
+    by_path = {}
+    res, by_path["async"] = phase_chaos_run(dev, "cnn@mnist rewafl async",
+                                            aggregation="async")
+    h, ast, M = res.history, res.async_state, MAIN_K // 2
+    check(bool(np.all(h["n_pending"] < M)), f"async: pending {h['n_pending']} reached M {M}")
+    occ = int(ast.slot_live.sum())
+    check(int(ast.n_dispatched) == int(ast.n_landed) + occ == int(ast.n_landed)
+          + int(h["n_pending"][-1]),
+          f"async: dispatched {int(ast.n_dispatched)} != landed {int(ast.n_landed)} + "
+          f"pending {occ}")
+    check(bool(np.all(np.diff(h["wall_clock"]) >= 0)) and h["wall_clock"][0] > 0,
+          f"async: wall clock {h['wall_clock']}")
+    check(int(h["n_landed"].sum()) > 0, "async: nothing landed")
+
+    sync, by_path["sync"] = phase_chaos_run(dev, "cnn@mnist rewafl sync (beside M = K)")
+    mk, by_path["async M=K"] = phase_chaos_run(dev, "cnn@mnist rewafl async M=K unit",
+                                               aggregation="async", buffer_m=MAIN_K,
+                                               async_delay="unit")
+    for k in ("sel_count", "n_selected", "H_trace", "n_participating", "n_failed",
+              "n_dropped", "n_available"):
+        check(np.array_equal(mk.history[k], sync.history[k]),
+              f"async M=K: {k} differs from the sync run: {mk.history[k]} vs "
+              f"{sync.history[k]}")
+    check(np.all(mk.history["n_pending"] == 0)
+          and mk.history["server_version"].tolist() == list(range(1, PATH_ROUNDS + 1)),
+          f"async M=K: pending {mk.history['n_pending']}, versions "
+          f"{mk.history['server_version']}")
+    for k in ("global_loss", "round_energy", "round_latency"):
+        check(np.allclose(mk.history[k], sync.history[k], rtol=1e-3, atol=1e-5),
+              f"async M=K: {k} {mk.history[k]} vs sync {sync.history[k]}")
+    print("async M=K unit: selections and counters equal the sync run's, losses "
+          "and costs within rtol 1e-3", flush=True)
+
+    res, by_path["lossy-uplink"] = phase_chaos_run(dev, "cnn@mnist rewafl lossy-uplink",
+                                                   "lossy-uplink")
+    check(int(res.history["n_lost"].sum()) > 0, "lossy-uplink: no upload lost")
+    for agg in ("sync", "async"):
+        res, by_path[f"flaky-fleet {agg}"] = phase_chaos_run(
+            dev, f"cnn@mnist rewafl flaky-fleet {agg}", "flaky-fleet", aggregation=agg)
+        for k in ("n_aborted", "n_corrupted", "n_rejected"):
+            check(int(res.history[k].sum()) > 0, f"flaky-fleet {agg}: {k} is 0")
+    return by_path
+
+
+# (name, scenario, AsyncCfg fields or None) of the small card-against-CPU
+# runs of rewafl on cnn@mnist, 4 rounds each; STRAGGLERS is a static
+# twin whose stragglers take 50 times longer, under a slot TTL
+STRAGGLERS = "static stragglers x50"
+CHAOS_RUNS = [("async M=2 jitter 0.3", "static-paper", dict(buffer_m=2, delay_jitter=0.3)),
+              ("async M=K unit", "static-paper", dict(buffer_m=4, delay="unit")),
+              ("async TTL", STRAGGLERS, dict(buffer_m=2, ttl=200.0, max_retries=1)),
+              ("lossy-uplink", "lossy-uplink", None),
+              ("flaky-fleet", "flaky-fleet", None),
+              ("flaky-fleet async", "flaky-fleet", dict(buffer_m=2))]
+
+
+def phase_small_chaos_agreement(dev) -> None:
+    """The async and fault paths at S 10, K 4 on the card against the same
+    runs on the CPU, from the same draws (the fault and delay-jitter
+    draws included): selections and every integer counter bitwise (the
+    fault and async counters, server_version, n_pending) and the final
+    buffer's integer leaves; losses, costs and the virtual clock within
+    rtol 1e-3."""
+    from repro_torch.core.async_agg import AsyncCfg
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import draw_noise, make_eval_fn
+    from repro_torch.launch.engine import run_rounds
+    from repro_torch.launch.fl_run import build_task, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import Scenario, get_scenario, init_env_state
+    from repro_torch.sim.faults import FaultCfg
+    S, K, n, R = 10, 4, 32, 4
+    cfg, spec = quick_cfg(K), METHODS["rewafl"]
+    model = make_fl_model("cnn@mnist", small=True)
+    params = model.init(torch.Generator().manual_seed(2))
+    for name, scenario, akw in CHAOS_RUNS:
+        sc = (Scenario(name=STRAGGLERS, static=True,
+                       faults=FaultCfg(straggler_rate=0.5, straggler_mult=50.0))
+              if scenario == STRAGGLERS else get_scenario(scenario))
+        acfg = AsyncCfg(**akw) if akw is not None else None
+        gen = torch.Generator().manual_seed(1)
+        noise = [draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n, sc.dynamic,
+                            sc.faults.enabled, acfg is not None and acfg.delay_jitter > 0)
+                 for _ in range(R)]
+        env_u = torch.rand(4, S, generator=torch.Generator().manual_seed(3))
+        out = {}
+        for d in ("cpu", dev):
+            fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
+                                init_energy_std=0.04, e0_frac=0.08)
+            cx, cy, test = build_task("cnn@mnist", S, 0.8, per_client=n, n_test=64, device=d)
+            out[str(d)] = run_rounds(
+                model, fleet, cx, cy, cfg, spec, rounds=R,
+                params={k: v.to(d) for k, v in params.items()}, chunk_size=2,
+                eval_fn=make_eval_fn(model, test["x"], test["y"]),
+                noise_fn=lambda r, d=d: noise[r].to(d), scenario=sc,
+                env=init_env_state(fleet, sc, env_u.to(d)), async_cfg=acfg, device=d)
+        a, b = out["cpu"], out[str(dev)]
+        check(set(a.history) == set(b.history), f"small run {name}: history keys differ")
+        rel = {}
+        for k, v in a.history.items():
+            if v.dtype.kind in "biu":
+                check(np.array_equal(v, b.history[k]),
+                      f"small run {name}: {k} differs: {v.tolist()} vs {b.history[k].tolist()}")
+            else:
+                check(np.allclose(v, b.history[k], rtol=1e-3, atol=1e-5, equal_nan=True),
+                      f"small run {name}: {k} differs: {v} vs {b.history[k]}")
+                dk = np.abs(np.asarray(v, np.float64) - b.history[k])
+                rel[k] = float(np.max(dk / np.maximum(np.abs(v), 1e-30)))
+        if acfg is not None:
+            for k, x in a.async_state._asdict().items():
+                if not x.is_floating_point():
+                    check(torch.equal(x, getattr(b.async_state, k).cpu()),
+                          f"small run {name}: the final buffer's {k} differs")
+        counts = {k: int(a.history[k].sum()) for k in
+                  ("n_aborted", "n_lost", "n_corrupted", "n_rejected", "n_landed",
+                   "n_retried", "n_expired") if k in a.history}
+        print(f"small run {name}: {R} rounds on the card agree with the CPU run "
+              f"(selections and integer counters bitwise; totals {json.dumps(counts)}; "
+              f"max relative difference {json.dumps(rel)})", flush=True)
+
+
 # ------------------------------------------------------- select_aggregate
 
 # (S, K, P): the paper CNN's parameters at the FL cell's fleet; a fleet
@@ -1297,6 +1512,7 @@ def main() -> None:
 
     phase_select(dev)   # bitwise: any difference has failed the run
     fed_err = phase_fedavg(dev)
+    phase_fedavg_nan(dev)
     flash_err = phase_flash(dev)
     slstm_err = phase_slstm(dev)
     stat_err = phase_stat_util(dev)
@@ -1308,7 +1524,11 @@ def main() -> None:
              "stat_util": time_stat_util(dev, MAIN_K, 32)}
     for v in times.values():
         v["launch_floor_ms"] = floor_ms
+    # the async land's aggregate: the whole (buffer_m + K, P) delta buffer
+    times["fedavg"]["async_land"] = land = time_fedavg(dev, ASYNC_SLOTS)
+    land.update(shape=f"K {ASYNC_SLOTS}, P {FEDAVG_P} f32", launch_floor_ms=floor_ms)
     for k, v in list(times.items()) + [
+            (f"fedavg K={ASYNC_SLOTS} (async land)", land),
             ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
             ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
         extra = (f", padded rows {v['padded_ms']:.5f} ms" if "padded_ms" in v else
@@ -1333,6 +1553,10 @@ def main() -> None:
         phase_fl_run(dev, "cnn@mnist", "rewafl", scenario)
     phase_small_agreement(dev)
     phase_weekend(dev)
+    # async aggregation and the fault scenarios, each its own path with
+    # the counts read just after it
+    chaos_counts = phase_async_and_faults(dev)
+    phase_small_chaos_agreement(dev)
     agg = phase_select_aggregate(dev)
     print(f"time select_aggregate: composed {agg['ms']:.5f} ms (issued from Python "
           f"{agg['eager_ms']:.5f} ms), select_mask + slots + gather + "
@@ -1373,7 +1597,9 @@ def main() -> None:
     }
     kernels = [dict(name=k, route="cuda", source=src, replaces=rep,
                     launches=counts[k], max_abs_err=err, **times[k], check=chk,
-                    **({"tc_launches": tc_counts[k]} if k in TC_KERNELS else {}))
+                    **({"tc_launches": tc_counts[k]} if k in TC_KERNELS else {}),
+                    **({"launches_by_path": {p: c[k] for p, c in chaos_counts.items()}}
+                       if k in ("rewafl_select", "fedavg", "stat_util") else {}))
                for k, (src, rep, err, chk) in meta.items()]
     agg["launch_floor_ms"] = floor_ms
     print(json.dumps({"select_aggregate": agg}), flush=True)

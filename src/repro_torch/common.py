@@ -1,4 +1,4 @@
-"""Device placement and the one arithmetic helper the ported numerics need."""
+"""Device placement and the helpers the ported numerics need."""
 from __future__ import annotations
 
 import torch
@@ -34,3 +34,14 @@ def rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
     correctly rounded division. (A filled tensor, not `new_tensor`: on the
     card that would be a host-to-device copy that waits for the stream.)"""
     return torch.full_like(den, num).div_(den)
+
+
+def scatter_drop(base: torch.Tensor, idx: torch.Tensor,
+                 vals: torch.Tensor) -> torch.Tensor:
+    """`base.at[idx].set(vals, mode="drop")` for idx in [0, len(base)]:
+    index len(base) lands in an extra entry that is sliced off, so writes
+    meant to be dropped need no host-side filtering. The other indices
+    must be distinct (a repeated index keeps an unspecified value)."""
+    ext = torch.cat([base, base[:1]])
+    ext[idx] = vals
+    return ext[:base.shape[0]]

@@ -9,11 +9,13 @@
 | reafl_lupa  | Eqn (2)                       | AdaH [23]                  |
 | rewafl      | Eqn (2)                       | Eqn (3) + stopping Eqn (4) |
 
-The port's round body (`core.round.make_round_body`) runs all six.
+The port's round body (`core.round.make_round_body`) runs all six, and
+`core.round.make_async_round_body` their async (FedBuff) variants.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +24,27 @@ class MethodSpec:
     selector: str   # random | oort | autofl | rea
     policy: str     # fixed | adah | rewa
     exploration: float = 0.0   # ε-greedy fraction (oort/autofl)
+    # aggregation regime: "sync" (FedAvg barrier) or "async" (FedBuff-style
+    # buffered aggregation, core.async_agg), whose specs set buffer_m (the
+    # M-updates aggregation trigger)
+    aggregation: str = "sync"
+    buffer_m: Optional[int] = None
+
+    def __post_init__(self):
+        if self.aggregation not in ("sync", "async"):
+            raise ValueError(f"aggregation must be 'sync' or 'async', "
+                             f"got {self.aggregation!r}")
+        if self.aggregation == "async" and (self.buffer_m is None
+                                            or self.buffer_m < 1):
+            raise ValueError("async MethodSpec needs buffer_m >= 1, "
+                             f"got {self.buffer_m}")
+
+
+def async_variant(spec: MethodSpec, buffer_m: int,
+                  suffix: str = "_async") -> MethodSpec:
+    """The async (FedBuff) counterpart of a sync method spec."""
+    return dataclasses.replace(spec, name=spec.name + suffix,
+                               aggregation="async", buffer_m=buffer_m)
 
 
 METHODS = {

@@ -1,4 +1,4 @@
-"""Algorithm 1 — one synchronous FL round.
+"""Algorithm 1 — one FL round, sync or async.
 
 Per round: on a dynamic scenario, the fleet's environment steps first
 (channel migration, charging and drain, churn, recoverable dropout:
@@ -6,23 +6,30 @@ Per round: on a dynamic scenario, the fleet's environment steps first
 model's probe loss (every `probe_every` rounds) → per-device candidate H
 (policy) → latency/energy estimates → selection by the method's selector
 (`rea`: the Eqn-2 utility through the `rewafl_select` kernel op; random,
-oort, autofl: the plain ε-greedy ranking) → masked, vmapped local SGD
-on the K selected slots to the static H_max → FedAvg (the `fedavg`
-kernel op) → the selected devices' statistical utility from their probe
-losses (the `stat_util` kernel op) → fleet-state update (Algorithm 1
-lines 18–27).
+oort, autofl: the plain ε-greedy ranking) → on a faulted scenario, the
+fault draws (stragglers, aborts, lost uploads) and the deadline cut →
+masked, vmapped local SGD on the K selected slots to the static H_max →
+corruption and the robust screen (`core.resilience`) → FedAvg (the
+`fedavg` kernel op), or in async mode dispatch into the pending buffer
+and the buffered, staleness-weighted lands (`core.async_agg`, the
+`fedavg` kernel op again) → the selected devices' statistical utility
+from their probe losses (the `stat_util` kernel op) → fleet-state update
+(Algorithm 1 lines 18–27).
 
-The round mirrors `repro.core.round.make_round_body` with faults,
-deadline, screen and async off. Two things differ by design:
+The round mirrors `repro.core.round._build_round_body` for a static
+`MethodSpec`, with the reference's gates: with no faults, no deadline, no
+screen and sync aggregation it runs exactly the fault-free sync ops. Two
+things differ by design:
 
 * Randomness is an argument. The round takes a `RoundNoise` (fading,
-  explore and minibatch draws, and a dynamic scenario's environment
-  draws) instead of a PRNG key, so a test can hand
-  it exactly the reference's draws; `launch.engine` draws it per round
-  from a `torch.Generator`.
+  explore and minibatch draws, a dynamic scenario's environment draws,
+  a faulted scenario's fault draws and the async delay jitter) instead
+  of a PRNG key, so a test can hand it exactly the reference's draws;
+  `launch.engine` draws it per round from a `torch.Generator`.
 * No host syncs. Slot padding is a sort, not `nonzero`; dead slots
   scatter into an (S+1)-long buffer whose extra entry is sliced off —
-  the reference's out-of-bounds `mode="drop"` scatter.
+  the reference's out-of-bounds `mode="drop"` scatter; the reference's
+  `lax.cond` computes both sides and `torch.where` picks.
 """
 from __future__ import annotations
 
@@ -32,15 +39,21 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.func import grad, vmap
 
+from repro_torch.common import scatter_drop
+from repro_torch.core import async_agg
 from repro_torch.core import policy as pol
+from repro_torch.core import resilience as res
 from repro_torch.core import selection as sel
 from repro_torch.core import utility as util
+from repro_torch.core.async_agg import AsyncCfg
 from repro_torch.core.methods import MethodSpec
-from repro_torch.core.state import FleetState
+from repro_torch.core.resilience import ResilienceCfg
+from repro_torch.core.state import AsyncState, FleetState
 from repro_torch.kernels.fedavg import ops as fedavg_ops
 from repro_torch.kernels.rewafl_select import ops as rsel_ops
 from repro_torch.kernels.stat_util import ops as stat_util_ops
 from repro_torch.models.fl_models import FLModel, Params
+from repro_torch.sim import faults as flt
 from repro_torch.sim.devices import DeviceFleet
 from repro_torch.sim.dynamics import (EnvState, Scenario, effective_rate_mean,
                                       step_env)
@@ -65,6 +78,10 @@ class FLConfig:
     # probe the global model every N rounds (1: every round, the paper's
     # semantics); between probes the round reuses the last probed loss
     probe_every: int = 1
+    # round deadline and robust update screen; the default adds nothing
+    # to a fault-free round, and the screen turns on by itself when the
+    # scenario injects faults
+    resilience: ResilienceCfg = dataclasses.field(default_factory=ResilienceCfg)
 
 
 class RoundNoise(NamedTuple):
@@ -75,22 +92,32 @@ class RoundNoise(NamedTuple):
     # (3, S) f32 uniform [0, 1): the environment step's channel, plug and
     # online draws; None on a static scenario
     env_u: Optional[torch.Tensor] = None
+    # (6, S) f32 uniform [0, 1): the fault draws (`sim.faults.fault_draws`);
+    # None when the scenario injects no faults
+    fault_u: Optional[torch.Tensor] = None
+    # (K,) f32 standard normal: the async delays' lognormal jitter; None
+    # when `AsyncCfg.delay_jitter` is 0 (or the round is sync)
+    delay_eps: Optional[torch.Tensor] = None
 
     def to(self, device) -> "RoundNoise":
         return RoundNoise(*(None if x is None else x.to(device) for x in self))
 
 
 def draw_noise(gen: torch.Generator, S: int, K: int, H_max: int, B: int,
-               n: int, dynamic: bool = False) -> RoundNoise:
+               n: int, dynamic: bool = False, faults: bool = False,
+               jitter: bool = False) -> RoundNoise:
     """Draw one round's noise on `gen`'s device; the environment draws
-    (dynamic scenarios) come after the others, so the static stream is
-    the same with or without them."""
+    (dynamic scenarios), then the fault draws (faulted scenarios), then
+    the delay jitter (async with `delay_jitter` > 0) come after the
+    others, so the static stream is the same with or without them."""
     dev = gen.device
     return RoundNoise(
         fading_eps=torch.randn(S, generator=gen, device=dev),
         explore_u=torch.rand(S, generator=gen, device=dev),
         batch_idx=torch.randint(0, n, (K, H_max, B), generator=gen, device=dev),
-        env_u=torch.rand(3, S, generator=gen, device=dev) if dynamic else None)
+        env_u=torch.rand(3, S, generator=gen, device=dev) if dynamic else None,
+        fault_u=torch.rand(6, S, generator=gen, device=dev) if faults else None,
+        delay_eps=torch.randn(K, generator=gen, device=dev) if jitter else None)
 
 
 def _probe_losses(model: FLModel, params: Params, cx: torch.Tensor,
@@ -152,38 +179,40 @@ def select_slots(selected: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Te
     return torch.where(slot_live, v, 0), slot_live
 
 
-def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
-                    scenario: Optional[Scenario] = None):
-    """Returns round(params, state, env, fleet, cx, cy, noise, round_idx)
-    -> (params', state', env', metrics) for any selector (`random`,
-    `oort`, `autofl`, `rea`) and policy (`fixed`, `adah`, `rewa`). cx/cy:
-    stacked client data (S, n, ...); `round_idx` a Python int, so the
-    `probe_every` schedule is a plain `if`.
-
-    `scenario` (None ≡ static-paper) picks the fleet dynamics: a static
-    one carries `env` through untouched; a dynamic one steps it first
-    from `noise.env_u` and gates selection on `env.online`. Scenarios
-    with fault injection raise NotImplementedError (ROADMAP A11)."""
+def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
+                      scenario: Optional[Scenario],
+                      acfg: Optional[AsyncCfg] = None):
+    """The round for any selector (`random`, `oort`, `autofl`, `rea`) and
+    policy (`fixed`, `adah`, `rewa`):
+    round(params, state, astate, env, fleet, cx, cy, noise, round_idx)
+    -> (params', state', astate', env', metrics). `acfg` None is the sync
+    FedAvg barrier (`astate` passes through as None); an `AsyncCfg` splits
+    the aggregation into dispatch and buffered lands."""
     if method.selector not in ("random", "oort", "autofl", "rea"):
         raise ValueError(f"unknown selector {method.selector!r}")
     if method.policy not in ("rewa", "fixed", "adah"):
         raise ValueError(f"unknown policy {method.policy!r}")
-    if scenario is not None and scenario.faults.enabled:
-        raise NotImplementedError(
-            f"scenario {scenario.name!r} injects faults, which are not "
-            "ported yet (ROADMAP A11)")
     dyn = scenario is not None and scenario.dynamic
+    # the chaos/resilience gates: with every one off, the round runs the
+    # fault-free ops and takes no fault draws
+    fcfg = scenario.faults if scenario is not None else flt.FaultCfg()
+    faults_on = fcfg.enabled
+    rcfg = cfg.resilience
+    deadline_on = rcfg.deadline_s is not None
+    screen_on = rcfg.screen_on(faults_on)
+    chaos = faults_on or deadline_on      # delivery ≠ participation
     K = cfg.n_select
     model_bits = float(cfg.uplink_bits or model.param_bits)
     pcfg = cfg.policy
     if method.policy == "fixed":
         # fixed-H baselines never exceed H0 — shrink the static loop bound
         cfg = dataclasses.replace(cfg, policy=dataclasses.replace(pcfg, H_max=pcfg.H0))
+    n_lands = acfg.lands(K) if acfg is not None else 0
 
     @torch.no_grad()
-    def round_fn(params: Params, state: FleetState, env: EnvState,
-                 fleet: DeviceFleet, cx: torch.Tensor, cy: torch.Tensor,
-                 noise: RoundNoise, round_idx: int):
+    def round_fn(params: Params, state: FleetState, astate: Optional[AsyncState],
+                 env: EnvState, fleet: DeviceFleet, cx: torch.Tensor,
+                 cy: torch.Tensor, noise: RoundNoise, round_idx: int):
         S = fleet.n
         dev = cx.device
         if dyn:
@@ -244,6 +273,31 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         participating = selected & feasible
         failed = selected & ~feasible
 
+        # --- fault injection (sim.faults) ----------------------------------
+        # `t_round` is the realised round time (straggler spikes included);
+        # `delivered` the participants whose update reaches the server
+        t_round = costs.t_total
+        if faults_on:
+            dr = flt.fault_draws(noise.fault_u)
+            straggler = participating & (dr.u_straggler < fcfg.straggler_rate)
+            t_round = torch.where(straggler, costs.t_total * fcfg.straggler_mult,
+                                  costs.t_total)
+            # mid-round compute abort: h_frac of the local steps ran
+            # (their energy is spent below); the update is lost
+            aborted = participating & (dr.u_abort < fcfg.abort_rate)
+            # upload loss: only a bad channel loses updates, after the
+            # upload's energy was spent (inert on a static scenario)
+            lost = (participating & ~aborted & ~env.channel_good
+                    & (dr.u_loss < fcfg.loss_rate))
+            delivered = participating & ~aborted & ~lost
+        else:
+            delivered = participating
+        if deadline_on:
+            # too-late survivors are cut from the aggregation (FedAvg
+            # renormalises over the rest); their energy is spent
+            cut = delivered & (t_round > rcfg.deadline_s)
+            delivered = delivered & ~cut
+
         # --- local training on the K selected slots ------------------------
         sel_idx, slot_live = select_slots(selected, K)
         part_k = participating[sel_idx] & slot_live
@@ -251,8 +305,81 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         global_flat = model.layout.flatten(params)
         client = _local_sgd(model, global_flat, xk, yk, H_cand[sel_idx],
                             noise.batch_idx, cfg)
-        weights = fleet.data_size[sel_idx].float() * part_k.float()
-        new_params = model.layout.views(_fedavg(global_flat, client, weights))
+        deliver_k = delivered[sel_idx] & slot_live if chaos else part_k
+        weights = fleet.data_size[sel_idx].float() * deliver_k.float()
+
+        # --- update corruption + robust screen (core.resilience) -----------
+        if faults_on:
+            corrupt = delivered & (dr.u_corrupt < fcfg.corrupt_rate)
+            client = flt.corrupt_cohort(client, global_flat,
+                                        corrupt[sel_idx] & deliver_k,
+                                        dr.u_cmode[sel_idx],
+                                        scale=fcfg.corrupt_scale,
+                                        nan_frac=fcfg.corrupt_nan_frac)
+        if screen_on:
+            client, weights, reject_k = res.screen_updates(
+                global_flat, client, weights, norm_mult=rcfg.norm_mult)
+            rejected = scatter_drop(torch.zeros_like(selected),
+                                  torch.where(slot_live, sel_idx, S), reject_k)
+            ok, ok_k = delivered & ~rejected, deliver_k & ~reject_k
+        else:
+            ok, ok_k = delivered, deliver_k
+
+        if acfg is None:
+            new_flat = _fedavg(global_flat, client, weights)
+        else:
+            # ---- async dispatch / land (core.async_agg) -------------------
+            # the cohort snapshots θ now; its deltas arrive on the virtual
+            # clock after the device's round time (or one unit)
+            if acfg.delay == "unit":
+                delays = torch.ones(K, device=dev)
+            else:   # straggler-inflated under faults (t_round aliases t_total otherwise)
+                delays = t_round[sel_idx]
+            if acfg.delay_jitter > 0.0:
+                delays = delays * torch.exp(acfg.delay_jitter * noise.delay_eps)
+            m_eff = acfg.buffer_m
+            pend_before = astate.slot_live.sum(dtype=torch.int32)
+            # under chaos or the screen only the updates that arrived and
+            # passed are pushed; fault-free, failed devices hold weight-0
+            # slots (the server cannot tell a crashed device from a slow one)
+            push_live = ok_k if (chaos or screen_on) else slot_live
+            astate, n_pushed = async_agg.push_cohort(
+                astate, client - global_flat, sel_idx, push_live, weights, delays)
+            n_retried_r = n_expired_r = None
+            if acfg.ttl is not None:
+                astate, tinfo = async_agg.expire_and_retry(
+                    astate, ttl=acfg.ttl, max_retries=acfg.max_retries,
+                    retry_backoff=acfg.retry_backoff)
+                n_retried_r, n_expired_r = tinfo["n_retried"], tinfo["n_expired"]
+            # the trigger relaxes to the live occupancy when nothing was
+            # pushed (a sub-M residue would park forever) and, at M = K,
+            # for an under-K cohort entering an empty buffer (it lands at
+            # once, as sync FedAvg would)
+            pend_after = astate.slot_live.sum(dtype=torch.int32)
+            stuck = (n_pushed == 0) & (pend_after > 0)
+            fresh_under = ((pend_before == 0) & (n_pushed > 0)
+                           & (n_pushed < m_eff) & (m_eff == K))
+            m_land = torch.where(stuck | fresh_under,
+                                 pend_after.clamp(max=m_eff).clamp_min(1), m_eff)
+            # a fixed number of land attempts; the first arms the bitwise
+            # sync fast path (this cohort alone, zero staleness)
+            new_flat = global_flat
+            n_agg = n_landed_r = stale_sum = 0
+            for j in range(n_lands):
+                sync_agg = sync_pred = None
+                if j == 0 and acfg.server_lr == 1.0:
+                    sync_agg = _fedavg(global_flat, client, weights)
+                    sync_pred = (lambda n_landed:
+                                 (pend_before == 0) & (n_landed == n_pushed))
+                new_flat, astate, info = async_agg.land_once(
+                    new_flat, astate, m_land,
+                    staleness_power=acfg.staleness_power,
+                    server_lr=acfg.server_lr,
+                    sync_aggregate=sync_agg, sync_pred=sync_pred)
+                n_agg = n_agg + info["did_aggregate"]
+                n_landed_r = n_landed_r + info["n_landed"]
+                stale_sum = stale_sum + info["stale_sum"]
+        new_params = model.layout.views(new_flat)
 
         # --- post-training local losses (stat-utility refresh) -------------
         probe = cfg.probe_size
@@ -261,8 +388,13 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         l_loss_k = ls.mean(1)
 
         # --- state update (lines 18–27) -----------------------------------
-        succ, succ_k = participating, part_k
+        # a device whose update never reached (or never passed) the server
+        # keeps its stale PS view, but its energy is spent regardless
+        # (an abort spends only the compute that ran)
+        succ, succ_k = (ok, ok_k) if (chaos or screen_on) else (participating, part_k)
         e_spent = torch.where(participating, costs.e_total, 0.0)
+        if faults_on:
+            e_spent = torch.where(aborted, costs.e_comp * dr.h_frac, e_spent)
         new_E = state.residual_energy - e_spent
         new_u = torch.where(succ, 0, state.u + 1)
         new_H = torch.where(succ, H_cand, state.H)
@@ -272,9 +404,8 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         scatter_idx = torch.where(slot_live, sel_idx, S)
 
         def scatter(base, vals_k, mask_k):
-            ext = torch.cat([base, base[:1]])
-            ext[scatter_idx] = torch.where(mask_k, vals_k, base[sel_idx])
-            return ext[:S]
+            return scatter_drop(base, scatter_idx,
+                              torch.where(mask_k, vals_k, base[sel_idx]))
 
         stat_k = stat_util_ops.stat_utility(ls, fleet.data_size[sel_idx])
         new_stat = scatter(state.last_stat, stat_k, succ_k)
@@ -306,8 +437,12 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
             g_loss=g_loss,
         )
         n_sel = selected.sum()
+        # realised latency: straggler-inflated, but never past the deadline
+        latency = torch.where(participating, t_round, 0.0).max()
+        if deadline_on:
+            latency = latency.clamp(max=rcfg.deadline_s)
         metrics: Dict[str, torch.Tensor] = {
-            "round_latency": torch.where(participating, costs.t_total, 0.0).max(),
+            "round_latency": latency,
             "round_energy": e_spent.sum(),
             "n_participating": participating.sum(),
             "n_failed": failed.sum(),
@@ -325,9 +460,73 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
             "residual_energy": new_E,
             "staleness": new_u,
         }
-        return new_params, new_state, env, metrics
+        # the chaos counters, each only under its gate (as the reference)
+        if faults_on:
+            metrics.update({"n_aborted": aborted.sum(), "n_lost": lost.sum(),
+                            "n_corrupted": corrupt.sum(),
+                            "n_straggler": straggler.sum()})
+        if deadline_on:
+            metrics["n_deadline_cut"] = cut.sum()
+        if screen_on:
+            metrics["n_rejected"] = reject_k.sum()
+        if acfg is not None:
+            metrics.update({
+                # virtual wall clock + buffer health
+                "wall_clock": astate.t_now,
+                "server_version": astate.server_version,
+                "n_pending": astate.slot_live.sum(),
+                "n_aggregations": n_agg,
+                "n_landed": n_landed_r,
+                "mean_update_staleness": (stale_sum.float()
+                                          / n_landed_r.clamp_min(1).float()),
+                # per-device (S,): staleness of the last landed update
+                "update_staleness": astate.update_staleness,
+            })
+            if acfg.ttl is not None:
+                metrics["n_retried"] = n_retried_r
+                metrics["n_expired"] = n_expired_r
+        return new_params, new_state, astate, env, metrics
 
     return round_fn
+
+
+def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
+                    scenario: Optional[Scenario] = None):
+    """Returns round(params, state, env, fleet, cx, cy, noise, round_idx)
+    -> (params', state', env', metrics): the sync FedAvg round. cx/cy:
+    stacked client data (S, n, ...); `round_idx` a Python int, so the
+    `probe_every` schedule is a plain `if`.
+
+    `scenario` (None ≡ static-paper) picks the fleet dynamics: a static
+    one carries `env` through untouched; a dynamic one steps it first
+    from `noise.env_u` and gates selection on `env.online`. A scenario
+    with fault injection draws its faults from `noise.fault_u`, and the
+    screen (`cfg.resilience`) then turns on by itself."""
+    body = _build_round_body(model, cfg, method, scenario)
+
+    def round_fn(params: Params, state: FleetState, env: EnvState,
+                 fleet: DeviceFleet, cx: torch.Tensor, cy: torch.Tensor,
+                 noise: RoundNoise, round_idx: int):
+        p, s, _, e, m = body(params, state, None, env, fleet, cx, cy, noise,
+                             round_idx)
+        return p, s, e, m
+
+    return round_fn
+
+
+def make_async_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
+                          scenario: Optional[Scenario] = None,
+                          async_cfg: AsyncCfg = AsyncCfg()):
+    """The async (FedBuff-style) round:
+    round(params, state, astate, env, fleet, cx, cy, noise, round_idx)
+    -> (params', state', astate', env', metrics), where `astate` is the
+    pending-update buffer and virtual clock (`core.state.AsyncState`,
+    from `init_async_state(flat params, S, async_cfg.slots(K))`).
+    Selection, training and the fleet-state update are the sync round's;
+    the dispatched deltas land after their delay and aggregate
+    staleness-weighted once `async_cfg.buffer_m` have arrived. With the
+    jitter on, `noise.delay_eps` carries its (K,) normal draw."""
+    return _build_round_body(model, cfg, method, scenario, async_cfg)
 
 
 def make_eval_fn(model: FLModel, test_x: torch.Tensor, test_y: torch.Tensor):

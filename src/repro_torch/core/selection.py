@@ -1,16 +1,31 @@
 """Participant selection: top-K ranking + baseline selection mechanisms.
 
-Ranking semantics match `repro.core.selection`: stable descending order,
-ties broken toward the lower device index (`lax.top_k`'s rule). That is
-a stable descending `torch.sort`, never `torch.topk`, which promises no
-order among ties. The random draws are arguments (the round's
-`RoundNoise`), not drawn here.
+Ranking semantics match `repro.core.selection`'s `lax.top_k`: descending
+in the IEEE total order (+0 above -0), ties between equal values broken
+toward the lower device index. A NaN of either sign ranks below every
+number, where `lax.top_k` puts the negative NaN that x86 arithmetic makes
+(it would put a positive one first: which sign a NaN carries depends on
+each library's ops, so the port does not follow it). That is a stable
+descending `torch.sort` of an integer key of the bits (`desc_order`),
+never `torch.topk`, which promises no order among ties, nor a sort of the
+floats, which puts every NaN first and ties ±0. The random draws are
+arguments (the round's `RoundNoise`), not drawn here.
 """
 from __future__ import annotations
 
 import torch
 
 NEG = -1e30
+
+
+def desc_order(values: torch.Tensor) -> torch.Tensor:
+    """Indices of f32 `values` in descending IEEE total order, every NaN
+    last, equal keys in ascending index order: the bits as int32, with a
+    negative float's lower 31 bits flipped, sort as the floats do."""
+    b = values.float().view(torch.int32)
+    key = torch.where(values.isnan(), torch.iinfo(torch.int32).min,
+                      b ^ ((b >> 31) & 0x7FFFFFFF))
+    return torch.sort(key, descending=True, stable=True).indices
 
 
 def top_k_select(utils: torch.Tensor, k: int,
@@ -21,8 +36,7 @@ def top_k_select(utils: torch.Tensor, k: int,
     k = min(k, utils.shape[-1])
     if k <= 0:
         return torch.zeros_like(available)
-    masked = torch.where(available, utils, NEG)
-    idx = torch.sort(masked, descending=True, stable=True).indices[:k]
+    idx = desc_order(torch.where(available, utils, NEG))[:k]
     sel = torch.zeros_like(available)
     sel[idx] = True
     return sel & available

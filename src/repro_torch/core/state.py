@@ -1,4 +1,5 @@
-"""Fleet state carried across FL rounds (all (S,) tensors)."""
+"""Fleet state carried across FL rounds (all (S,) tensors), and the async
+mode's virtual clock and pending-update buffer."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -24,6 +25,56 @@ class FleetState(NamedTuple):
     g_loss: torch.Tensor            # f32 — last probed global-model loss per
                                     # device (round 0 always probes, so the
                                     # init value is never consumed)
+
+
+class AsyncState(NamedTuple):
+    """Virtual clock + fixed-capacity pending-update buffer carried across
+    rounds in the async (FedBuff-style) mode (`core.async_agg`). Slot
+    tensors have leading axis P_slots (`AsyncCfg.slots(K)`); `slot_delta`
+    is one contiguous (P_slots, P) buffer of θ_k − θ(dispatch) in the
+    model's flat layout (`models.fl_models.ParamLayout`), so a land is one
+    `fedavg` launch. Dead slots are masked by `slot_live`."""
+    t_now: torch.Tensor             # f32 () — virtual wall clock (s)
+    server_version: torch.Tensor    # i32 () — aggregations applied so far
+    slot_live: torch.Tensor         # bool (P_slots,) — holds an in-flight update
+    slot_device: torch.Tensor       # i32 — dispatching device index
+    slot_arrival: torch.Tensor      # f32 — virtual arrival time
+    slot_version: torch.Tensor      # i32 — server_version at dispatch
+    slot_weight: torch.Tensor       # f32 — FedAvg weight (0 = failed)
+    slot_delta: torch.Tensor        # f32 (P_slots, P) — θ_k − θ(dispatch)
+    slot_retry: torch.Tensor        # i32 — TTL re-dispatch attempts so far
+    n_dispatched: torch.Tensor      # i32 () — updates pushed (ever)
+    n_landed: torch.Tensor          # i32 () — updates aggregated (ever)
+    n_expired: torch.Tensor         # i32 () — updates dropped by the slot TTL
+    update_staleness: torch.Tensor  # i32 (S,) — staleness of each device's
+                                    # most recently landed update
+
+
+def init_async_state(params_flat: torch.Tensor, n_devices: int,
+                     capacity: int) -> AsyncState:
+    """Empty buffer at virtual time zero, on `params_flat`'s device, for a
+    model of `params_flat.numel()` parameters; `capacity` is the slot
+    count P_slots (`core.async_agg.AsyncCfg.slots(K)`)."""
+    dev = params_flat.device
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return AsyncState(
+        t_now=zeros(dtype=torch.float32),
+        server_version=zeros(),
+        slot_live=zeros(capacity, dtype=torch.bool),
+        slot_device=zeros(capacity),
+        slot_arrival=zeros(capacity, dtype=torch.float32),
+        slot_version=zeros(capacity),
+        slot_weight=zeros(capacity, dtype=torch.float32),
+        slot_delta=zeros(capacity, params_flat.numel(), dtype=params_flat.dtype),
+        slot_retry=zeros(capacity),
+        n_dispatched=zeros(),
+        n_landed=zeros(),
+        n_expired=zeros(),
+        update_staleness=zeros(n_devices),
+    )
 
 
 def init_fleet_state(fleet: DeviceFleet, *, H0: int = 5,

@@ -16,8 +16,8 @@
 // is bound by one launch.
 //
 // Design. Every device gets a 64-bit key whose order is (value desc,
-// index asc): the high word is the value's order-preserving bits,
-// inverted, the low word the index. Keys are unique, so any exact
+// index asc): the high word is the value's order-preserving bits (the
+// IEEE total order), inverted, the low word the index. Keys are unique, so any exact
 // selection of the k smallest keys returns the same set, and sorting that
 // set gives the reference's rank order with its tie rule.
 //
@@ -50,7 +50,10 @@
 // its candidates, K a tile, so a tile is as many devices as one block
 // holds anyway: 123 tiles and 2,460 candidates at S = 1e6 and K = 20. A
 // ragged last tile just has fewer keys; nothing is padded. Dead slots are
-// written as (0, 0).
+// written as (0, 0). A slot is live unless its value is at or below
+// LIVE_THR (an unavailable device's -1e30): a NaN utility of an available
+// device ranks last and is selected when the ranking reaches it, as the
+// reference's `lax.top_k` selection does with a negative NaN.
 //
 // The utility (`utility`, `pow_s`) follows the plain version op for op,
 // so its values, and the selection, are bitwise the plain version's.
@@ -71,9 +74,10 @@ constexpr float NEG = -1e30f;
 constexpr float LIVE_THR = -1e29f;
 constexpr u64 NO_KEY = ~0ull;   // after every real key
 
+// The IEEE total order of the bits, as lax.top_k ranks (+0 above -0),
+// with every NaN below every number (core.selection.desc_order).
 __device__ __forceinline__ unsigned int ordered_bits(float v) {
-  v = v + 0.0f;                                 // -0 -> +0: they tie
-  if (isnan(v)) v = __int_as_float(0x7fc00000);  // NaN ranks first
+  if (isnan(v)) return 0u;
   unsigned int u = __float_as_uint(v);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
@@ -93,7 +97,7 @@ __device__ __forceinline__ int key_index(u64 key) {
 }
 
 __device__ __forceinline__ bool key_live(u64 key) {
-  return key != NO_KEY && key_value(key) > LIVE_THR;
+  return key != NO_KEY && !(key_value(key) <= LIVE_THR);   // NaN is live
 }
 
 // jnp.maximum(x, lo) for a constant lo: a NaN x stays NaN.

@@ -2,7 +2,7 @@
 
 Same function as `csrc/rewafl_select.cu`, computed the unfused way:
 materialise the (S,) Eqn-2 utility (`core.utility`, op for op), rank it
-with a stable descending sort, and resolve the ε-greedy explore slots
+in descending IEEE total order (`core.selection.desc_order`), and resolve the ε-greedy explore slots
 from a second ranking of the uniform draw. It returns what the kernel
 returns — (K,) device indices and live flags, exploit slots first, each
 half in rank order, dead slots as (index 0, live 0) — so the two compare
@@ -16,16 +16,20 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import utility as util
-from repro_torch.core.selection import _explore_slots
+from repro_torch.core.selection import _explore_slots, desc_order
 
 NEG = -1e30       # masking value for unavailable devices
-LIVE_THR = -1e29  # candidate values above this came from an available device
+# candidate values at or below this came from an unavailable device; a NaN
+# utility (of an available device: ranked last) is live, as `lax.top_k`
+# ranks and selects it
+LIVE_THR = -1e29
 
 
 def _ranked(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """First k (value, index) pairs in (value desc, index asc) order."""
-    v, i = torch.sort(values, descending=True, stable=True)
-    return v[:k], i[:k]
+    """First k (value, index) pairs in (value desc in the IEEE total order,
+    index asc) order."""
+    i = desc_order(values)[:k]
+    return values[i], i
 
 
 def select_topk(available: torch.Tensor, ui: util.UtilityInputs,
@@ -37,12 +41,12 @@ def select_topk(available: torch.Tensor, ui: util.UtilityInputs,
     utils = torch.where(available, util.rewafl_utility_from(
         ui, T_round=T_round, alpha=alpha, beta=beta), NEG)
     xv, xi = _ranked(utils, k_exploit)
-    x_live = xv > LIVE_THR
+    x_live = ~(xv <= LIVE_THR)
     idx, live = [torch.where(x_live, xi, 0)], [x_live]
     if k_explore > 0:
         rv, ri = _ranked(torch.where(available, rnd, NEG), k_exploit + k_explore)
         taken = ((ri[:, None] == xi[None, :]) & x_live[None, :]).any(1)
-        pick = (rv > LIVE_THR) & ~taken
+        pick = ~(rv <= LIVE_THR) & ~taken
         # the first k_explore picked candidates, in rank order
         order = torch.sort((~pick).to(torch.uint8), stable=True).indices[:k_explore]
         r_live = pick[order]

@@ -17,6 +17,11 @@ scenario's environment is carried across rounds and chunks; without an
 `env` argument its initial draws come from a generator of their own,
 seeded `seed + ENV_SEED_OFFSET`, so the rounds' stream does not move —
 the reference folds them from its loop key the same way.
+
+`async_cfg` switches to FedBuff-style buffered aggregation
+(`core.async_agg`): the pending-update buffer and virtual clock
+(`AsyncState`) start empty and are carried across rounds and chunks, and
+come back in `EngineResult.async_state`.
 """
 from __future__ import annotations
 
@@ -28,17 +33,19 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
+from repro_torch.core.async_agg import AsyncCfg
 from repro_torch.core.methods import MethodSpec
 from repro_torch.core.round import (FLConfig, RoundNoise, draw_noise,
-                                    make_round_body)
-from repro_torch.core.state import FleetState, init_fleet_state
+                                    make_async_round_body, make_round_body)
+from repro_torch.core.state import (AsyncState, FleetState, init_async_state,
+                                    init_fleet_state)
 from repro_torch.models.fl_models import FLModel, Params
 from repro_torch.sim.devices import DeviceFleet
 from repro_torch.sim.dynamics import EnvState, Scenario, init_env_state
 
 # the round's per-device leaves that dense history drops, as the
 # reference's does: only `selected` and `H` are kept as (R, S) traces
-DROPPED_PER_DEVICE = ("residual_energy", "staleness")
+DROPPED_PER_DEVICE = ("residual_energy", "staleness", "update_staleness")
 
 # the initial environment's generator seed, past the rounds' (the
 # reference's side-channel salt for the same draw)
@@ -58,6 +65,7 @@ class EngineResult:
     chunk_wall_s: Optional[np.ndarray] = None
     chunk_rounds: Optional[np.ndarray] = None
     env: Optional[EnvState] = None   # final environment state
+    async_state: Optional[AsyncState] = None   # final buffer (async runs)
 
 
 def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
@@ -69,11 +77,12 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                noise_fn: Optional[Callable[[int], RoundNoise]] = None,
                scenario: Optional[Scenario] = None,
                env: Optional[EnvState] = None,
+               async_cfg: Optional[AsyncCfg] = None,
                device="cuda") -> EngineResult:
     """Run up to `rounds` rounds in chunks of `chunk_size`, early-stopping
     on `target_acc` (needs `eval_fn`) at chunk boundaries, under
-    `scenario`'s fleet dynamics from `env`. Every tensor argument must
-    already be on `device`."""
+    `scenario`'s fleet dynamics from `env`, sync or (`async_cfg`) async.
+    Every tensor argument must already be on `device`."""
     dev = resolve_device(device)
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
@@ -85,8 +94,16 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
     if state is None:
         state = init_fleet_state(fleet, H0=cfg.policy.H0)
-    body = make_round_body(model, cfg, method, scenario)
     dyn = scenario is not None and scenario.dynamic
+    faults = scenario is not None and scenario.faults.enabled
+    jitter = async_cfg is not None and async_cfg.delay_jitter > 0.0
+    astate = None
+    if async_cfg is None:
+        body = make_round_body(model, cfg, method, scenario)
+    else:
+        body = make_async_round_body(model, cfg, method, scenario, async_cfg)
+        astate = init_async_state(model.layout.flatten(params), S,
+                                  async_cfg.slots(cfg.n_select))
     if env is None:
         u = None
         if dyn:
@@ -99,7 +116,8 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
     def noise(r: int) -> RoundNoise:
         if noise_fn is not None:
             return noise_fn(r)
-        return draw_noise(gen, S, cfg.n_select, H_max, cfg.batch_size, n, dyn)
+        return draw_noise(gen, S, cfg.n_select, H_max, cfg.batch_size, n, dyn,
+                          faults, jitter)
 
     host: Dict[str, List[np.ndarray]] = {}
     acc_curve: List[float] = []
@@ -112,8 +130,12 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
         t0 = time.time()
         ms = []
         for r in range(done, done + length):
-            params, state, env, m = body(params, state, env, fleet, cx, cy,
-                                         noise(r), r)
+            if astate is None:
+                params, state, env, m = body(params, state, env, fleet, cx, cy,
+                                             noise(r), r)
+            else:
+                params, state, astate, env, m = body(params, state, astate, env,
+                                                     fleet, cx, cy, noise(r), r)
             ms.append(m)
         for k in ms[0]:
             if k not in DROPPED_PER_DEVICE:   # one copy per key per chunk
@@ -137,4 +159,4 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                         acc_curve=np.asarray(acc_curve, np.float64),
                         chunk_wall_s=np.asarray(chunk_wall, np.float64),
                         chunk_rounds=np.asarray(chunk_len, np.int64),
-                        env=env)
+                        env=env, async_state=astate)

@@ -2,13 +2,15 @@
 
 Builds the synthetic task, the device fleet, and runs FL rounds under a
 chosen PS method until target accuracy or a round budget, on a CUDA
-device by default. The port of `repro.launch.fl_run` for the sync,
-dense-telemetry path, on the static fleet and the four fault-free
-fleet-dynamics scenarios.
+device by default. The port of `repro.launch.fl_run` for dense
+telemetry: sync or async (FedBuff-style) aggregation, on the static
+fleet and every fleet-dynamics scenario, the two fault scenarios
+included.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.fl_run \
           --task cnn@mnist --method rewafl --rounds 100 \
-          [--scenario churn-heavy] [--probe-every 2]
+          [--scenario flaky-fleet] [--probe-every 2] \
+          [--aggregation async --buffer-m 10 --async-delay wall]
 (`--device cpu` runs on the CPU; without a GPU the default raises.)
 """
 from __future__ import annotations
@@ -24,10 +26,11 @@ import numpy as np
 import torch
 
 from repro_torch.common import resolve_device
+from repro_torch.core.async_agg import DELAY_MODES, AsyncCfg
 from repro_torch.core.methods import METHODS
 from repro_torch.core.policy import PolicyCfg
 from repro_torch.core.round import FLConfig, make_eval_fn
-from repro_torch.core.state import FleetState
+from repro_torch.core.state import AsyncState, FleetState
 from repro_torch.data.partition import client_datasets
 from repro_torch.data.synthetic import (make_char_dataset, make_har_dataset,
                                         make_image_dataset)
@@ -56,6 +59,8 @@ class RunResult:
     # per-chunk wall clock (the first includes warm-up) + rounds per chunk
     chunk_wall_s: Optional[np.ndarray] = None
     chunk_rounds: Optional[np.ndarray] = None
+    wall_clock_s: Optional[float] = None   # async: final virtual time
+    async_state: Optional[AsyncState] = None   # async: final buffer
 
 
 def build_task(task: str, n_clients: int, lam: float, *, per_client: int = 128,
@@ -105,6 +110,15 @@ HIST_KEYS = ("round_latency", "round_energy", "n_dropped",
              "n_participating", "n_failed", "mean_H_selected", "global_loss",
              "n_available", "n_charging", "n_online")
 
+# the per-round scalars the async round adds (core.async_agg)
+ASYNC_HIST_KEYS = ("wall_clock", "server_version", "n_pending",
+                   "n_aggregations", "n_landed", "mean_update_staleness")
+
+# the chaos and resilience counters (sim.faults, core.resilience, the
+# async slot TTL): in the history only under the gates the run has on
+FAULT_HIST_KEYS = ("n_aborted", "n_lost", "n_corrupted", "n_straggler",
+                   "n_deadline_cut", "n_rejected", "n_retried", "n_expired")
+
 
 def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
            rounds: int = 100, n_clients: int = 100, n_select: int = 20,
@@ -114,7 +128,11 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
            fl_cfg: Optional[FLConfig] = None, fleet_kwargs: Optional[dict] = None,
            eval_every: int = 5, verbose: bool = False, chunk_size: int = 8,
            scenario: str = "static-paper", probe_every: int = 1,
-           aggregation: str = "sync", telemetry: str = "dense",
+           telemetry: str = "dense", aggregation: str = "sync",
+           buffer_m: Optional[int] = None, staleness_power: float = 0.5,
+           delay_jitter: float = 0.0, async_delay: str = "wall",
+           trace: Optional[str] = None, checkpoint_every: Optional[int] = None,
+           fleet_shards: Optional[int] = None,
            device="cuda") -> RunResult:
     """Run one FL campaign on `device` (a CUDA device by default).
 
@@ -124,20 +142,42 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     paper-scale model under the full `FLConfig`. Tasks: cnn@mnist,
     cnn@cifar10, cnn@har, lstm@shakespeare; methods: `core.methods.
     METHODS` (random, oort, autofl, reafl, reafl_lupa, rewafl);
-    scenarios: `sim.dynamics.SCENARIOS`. `probe_every` N > 1 probes the
-    global model every N rounds. Seeds follow the reference: fleet and
-    data from `seed`, the round noise generator from `seed + 1`, the
-    model init from `seed + 2`, a dynamic scenario's initial environment
-    from `seed + 3`.
+    scenarios: `sim.dynamics.SCENARIOS` (lossy-uplink and flaky-fleet
+    inject faults, and the robust screen turns on). `probe_every` N > 1
+    probes the global model every N rounds. Seeds follow the reference:
+    fleet and data from `seed`, the round noise generator from
+    `seed + 1`, the model init from `seed + 2`, a dynamic scenario's
+    initial environment from `seed + 3`.
 
-    Only sync aggregation and dense telemetry are ported, and no
-    scenario with fault injection (lossy-uplink, flaky-fleet: ROADMAP
-    A11); those raise NotImplementedError."""
-    for name, val, ported in (("aggregation", aggregation, "sync"),
-                              ("telemetry", telemetry, "dense")):
-        if val != ported:
+    `aggregation="async"` switches to FedBuff-style buffered aggregation
+    (`core.async_agg`): updates land on a virtual clock after the
+    device's round time (`async_delay="wall"`) or one unit (`"unit"`),
+    times a lognormal `delay_jitter`, and the server aggregates
+    staleness-weighted (`staleness_power`) once `buffer_m` (default
+    max(1, n_select // 2)) have arrived. History gains `ASYNC_HIST_KEYS`
+    and `RunResult.wall_clock_s` is the final virtual time. With
+    `buffer_m=n_select`, `async_delay="unit"` and no jitter the run is
+    the sync run, bitwise.
+
+    Streaming telemetry and `trace` (ROADMAP A12), `checkpoint_every`
+    (A14) and `fleet_shards` above 1 (A16) are not ported: they raise
+    NotImplementedError."""
+    if telemetry not in ("dense", "streaming"):
+        raise ValueError(f"unknown telemetry {telemetry!r} "
+                         "(use 'dense' or 'streaming')")
+    if aggregation not in ("sync", "async"):
+        raise ValueError(f"unknown aggregation {aggregation!r} "
+                         "(use 'sync' or 'async')")
+    # the reference's options the port does not have yet, each with the
+    # ROADMAP item that brings it
+    for name, val, on, item in (
+            ("telemetry", telemetry, telemetry == "streaming", "A12"),
+            ("trace", trace, trace is not None, "A12"),
+            ("checkpoint_every", checkpoint_every, checkpoint_every is not None, "A14"),
+            ("fleet_shards", fleet_shards, (fleet_shards or 1) > 1, "A16")):
+        if on:
             raise NotImplementedError(f"{name}={val!r} is not ported yet "
-                                      f"(only {ported!r})")
+                                      f"(ROADMAP {item})")
     scen = get_scenario(scenario)
     dev = resolve_device(device)
     model = make_fl_model(task, small=small)
@@ -151,6 +191,12 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
                      FLConfig(n_select=n_select, alpha=alpha, beta=beta))
     if probe_every != 1:
         cfg = dataclasses.replace(cfg, probe_every=probe_every)
+    acfg = None
+    if aggregation == "async":
+        acfg = AsyncCfg(buffer_m=(buffer_m if buffer_m is not None
+                                  else max(1, cfg.n_select // 2)),
+                        delay=async_delay, delay_jitter=delay_jitter,
+                        staleness_power=staleness_power)
     env_u = None
     if scen.dynamic:
         env_gen = torch.Generator(device=dev).manual_seed(seed + 3)
@@ -162,7 +208,7 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         chunk_size=max(1, min(chunk_size, eval_every)),
         eval_fn=make_eval_fn(model, test["x"], test["y"]),
         target_acc=target_acc, scenario=scen,
-        env=init_env_state(fleet, scen, env_u), device=dev)
+        env=init_env_state(fleet, scen, env_u), async_cfg=acfg, device=dev)
     h = res.history
     if verbose:
         ends = np.cumsum(res.chunk_rounds) - 1
@@ -171,10 +217,12 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
                      f"loss={h['global_loss'][r_end]:.4f} "
                      f"drop={int(h['n_dropped'][r_end])}")
     empty = np.zeros(0)
+    hist_keys = HIST_KEYS + (ASYNC_HIST_KEYS if acfg is not None else ())
     return RunResult(
         task=task, method=method, rounds_run=res.rounds_run,
         reached_round=res.reached_round, target_acc=target_acc,
-        history={k: np.asarray(h.get(k, empty), np.float64) for k in HIST_KEYS}
+        history={k: np.asarray(h.get(k, empty), np.float64) for k in hist_keys}
+        | {k: np.asarray(h[k], np.float64) for k in FAULT_HIST_KEYS if k in h}
         | {
             "sel_count": np.asarray(h.get("selected", empty)).sum(0).astype(np.int64),
             # devices selected per round (the port's; derived like sel_count)
@@ -191,13 +239,16 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         dropout_ratio=(float(h["n_dropped"][-1]) / n_clients
                        if res.rounds_run else 0.0),
         acc_curve=res.acc_curve, final_params=res.params,
-        chunk_wall_s=res.chunk_wall_s, chunk_rounds=res.chunk_rounds)
+        chunk_wall_s=res.chunk_wall_s, chunk_rounds=res.chunk_rounds,
+        wall_clock_s=(float(h["wall_clock"][-1])
+                      if acfg is not None and res.rounds_run else None),
+        async_state=res.async_state)
 
 
 def summary(res: RunResult, *, scenario: str, telemetry: str,
             aggregation: str, wall_s: float) -> dict:
-    """The CLI's stdout JSON — the reference's keys; the options this
-    slice does not port report None or empty."""
+    """The CLI's stdout JSON — the reference's keys; those of options the
+    port does not have (health, checkpoints) report None or 0."""
     return {
         "task": res.task, "method": res.method,
         "scenario": scenario, "telemetry": telemetry,
@@ -206,10 +257,11 @@ def summary(res: RunResult, *, scenario: str, telemetry: str,
         "dropout_ratio": res.dropout_ratio,
         "overall_latency_h": res.overall_latency_s / 3600,
         "overall_energy_kj": res.overall_energy_j / 1e3,
-        "wall_clock_s": None,
+        "wall_clock_s": res.wall_clock_s,
         "final_acc": (float(res.acc_curve[-1]) if len(res.acc_curve) else None),
         "health_ok": None,
-        "fault_totals": {},
+        "fault_totals": {k: float(np.sum(res.history[k]))
+                         for k in FAULT_HIST_KEYS if k in res.history},
         "carry_sha": None, "start_round": 0,
         "wall_s": round(wall_s, 1),
     }
@@ -231,10 +283,26 @@ def main(argv=None) -> None:
     ap.add_argument("--scenario", default="static-paper",
                     choices=sorted(SCENARIOS),
                     help="fleet dynamics; lossy-uplink and flaky-fleet "
-                         "inject faults, not ported yet (they raise)")
+                         "also inject faults")
     ap.add_argument("--probe-every", type=int, default=1,
                     help="re-probe the global model every N rounds "
                          "(1 = every round, the paper's exact semantics)")
+    ap.add_argument("--aggregation", default="sync", choices=("sync", "async"),
+                    help="'sync' is the FedAvg round barrier; 'async' is "
+                         "FedBuff-style buffered aggregation on a virtual "
+                         "wall clock")
+    ap.add_argument("--buffer-m", type=int, default=None,
+                    help="async: aggregate once M updates are buffered "
+                         "(default n_select // 2)")
+    ap.add_argument("--staleness-power", type=float, default=0.5,
+                    help="async: staleness damping a in (1+stale)^-a")
+    ap.add_argument("--delay-jitter", type=float, default=0.0,
+                    help="async: lognormal sigma multiplying each "
+                         "update's delay (0 = deterministic delays)")
+    ap.add_argument("--async-delay", default="wall", choices=DELAY_MODES,
+                    help="async delay model: 'wall' uses each device's "
+                         "simulated compute+uplink seconds, 'unit' lands "
+                         "every update one clock tick after dispatch")
     ap.add_argument("--full-width", action="store_true",
                     help="paper-scale model and FLConfig instead of the "
                          "width-reduced proxy and quick_cfg")
@@ -251,10 +319,13 @@ def main(argv=None) -> None:
                  beta=args.beta, seed=args.seed, small=not args.full_width,
                  verbose=not args.quiet, chunk_size=args.chunk_size,
                  scenario=args.scenario, probe_every=args.probe_every,
+                 aggregation=args.aggregation, buffer_m=args.buffer_m,
+                 staleness_power=args.staleness_power,
+                 delay_jitter=args.delay_jitter, async_delay=args.async_delay,
                  device=args.device)
     print(json.dumps(summary(res, scenario=args.scenario, telemetry="dense",
-                             aggregation="sync", wall_s=time.time() - t0),
-                     indent=1))
+                             aggregation=args.aggregation,
+                             wall_s=time.time() - t0), indent=1))
 
 
 if __name__ == "__main__":

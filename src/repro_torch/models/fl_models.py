@@ -31,6 +31,7 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.common import resolve_device
+from repro_torch.core.state import AsyncState
 from repro_torch.data.synthetic import CHAR_VOCAB
 from repro_torch.nn import layers
 from repro_torch.nn.recurrent import LSTM
@@ -215,6 +216,29 @@ def params_from_jax(tree, device="cuda") -> Params:
 
     walk(tree, "")
     return out
+
+
+def async_state_from_jax(astate, layout: ParamLayout, device="cuda") -> AsyncState:
+    """A reference `AsyncState` (its leaves as arrays; `slot_delta` a
+    parameter tree of (P_slots, ...) leaves) → the port's, whose
+    `slot_delta` is one (P_slots, P) buffer in `layout`'s flat order."""
+    dev = resolve_device(device)
+
+    def row(node, i):
+        return {k: row(v, i) if isinstance(v, dict) else np.asarray(v)[i]
+                for k, v in node.items()}
+
+    leaves = {}
+    for name in AsyncState._fields:
+        v = getattr(astate, name)
+        if name == "slot_delta":
+            n = np.asarray(astate.slot_live).shape[0]
+            leaves[name] = torch.stack([
+                layout.flatten(params_from_jax(row(v, i), device=dev))
+                for i in range(n)])
+        else:
+            leaves[name] = torch.tensor(np.asarray(v), device=dev)
+    return AsyncState(**leaves)
 
 
 def params_to_jax(params: Params) -> dict:

@@ -60,7 +60,7 @@ class Scenario:
     weekend_online_on_mult: float = 1.0  # scales offline->online prob
     weekend_online_off_mult: float = 1.0 # scales online->offline prob
 
-    # --- fault injection (ROADMAP A11); all-zero rates inject nothing
+    # --- fault injection (sim.faults); all-zero rates inject nothing
     faults: FaultCfg = dataclasses.field(default_factory=FaultCfg)
 
     @property
@@ -130,7 +130,8 @@ register(Scenario(
     p_online_day=0.35, p_online_night=0.35, frac_online0=0.6))
 
 # Fault scenarios: a lossy, straggling link, and a flaky device fleet.
-# Their fault injection is not ported yet (ROADMAP A11).
+# The round injects their faults (`sim.faults`) and screens the updates
+# (`core.resilience`).
 register(Scenario(
     name="lossy-uplink",
     p_good_to_bad=0.30, p_bad_to_good=0.15,

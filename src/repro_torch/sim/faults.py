@@ -1,14 +1,21 @@
-"""Fault-injection settings that a fleet-dynamics scenario carries.
+"""Deterministic fault injection for the FL round (the chaos layer).
 
-The port of `repro.sim.faults.FaultCfg`: per-round rates of mid-round
-compute aborts, upload loss on a bad channel, corrupted updates and
-latency spikes. A scenario whose `faults.enabled` is true needs fault
-injection and the resilience screen in the round (ROADMAP A11), which
-the port does not have yet: `core.round.make_round_body` raises for it.
+The port of `repro.sim.faults`: per-round rates of mid-round compute
+aborts (the update is lost, the compute energy that ran is spent), upload
+loss on a bad Gilbert–Elliott channel, corrupted updates (NaN, or a norm
+blow-up by `corrupt_scale`) and latency spikes. `FaultCfg` is attached to
+a fleet-dynamics scenario; when `enabled` is false the round injects
+nothing and draws nothing for it. A round's randomness is one (6, S)
+uniform draw, `RoundNoise.fault_u` (the reference folds it from the round
+key with `FAULT_SALT`), split by `fault_draws`. The resilience screen
+that rejects corrupted updates is `core.resilience`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
+
+import torch
 
 _RATE_FIELDS = ("abort_rate", "loss_rate", "corrupt_rate",
                 "straggler_rate", "corrupt_nan_frac")
@@ -52,3 +59,34 @@ class FaultCfg:
         """False when every rate is 0: the round injects nothing."""
         return (self.abort_rate > 0.0 or self.loss_rate > 0.0
                 or self.corrupt_rate > 0.0 or self.straggler_rate > 0.0)
+
+
+class FaultDraws(NamedTuple):
+    """One round's per-device U(0,1) fields. `h_frac` is the abort's
+    progress fraction (how much of the local compute ran before the
+    crash); `u_cmode` picks NaN against blow-up per corruption."""
+    u_straggler: torch.Tensor  # (S,)
+    u_abort: torch.Tensor      # (S,)
+    h_frac: torch.Tensor       # (S,)
+    u_loss: torch.Tensor       # (S,)
+    u_corrupt: torch.Tensor    # (S,)
+    u_cmode: torch.Tensor      # (S,)
+
+
+def fault_draws(u: torch.Tensor) -> FaultDraws:
+    """The six fields of a round's (6, S) fault uniforms, in the
+    reference's row order."""
+    return FaultDraws(*u.unbind(0))
+
+
+def corrupt_cohort(client: torch.Tensor, global_flat: torch.Tensor,
+                   corrupt_k: torch.Tensor, u_cmode_k: torch.Tensor, *,
+                   scale: float, nan_frac: float) -> torch.Tensor:
+    """The (K, P) cohort with the marked slots' updates corrupted: a
+    corrupted slot's delta θ_k − θ becomes NaN (u_cmode < nan_frac) or is
+    scaled by `scale` (a norm blow-up, typically overflowing to ±inf in
+    f32). corrupt_k: (K,) bool; u_cmode_k: (K,) uniforms."""
+    factor = torch.where(u_cmode_k < nan_frac, torch.nan, scale).to(client.dtype)
+    return torch.where(corrupt_k[:, None],
+                       global_flat + (client - global_flat) * factor[:, None],
+                       client)

@@ -56,11 +56,11 @@ def _select_case(S, case, K, dev):
         avail[rng.permutation(S)[:K // 2]] = True
     elif case == "none":      # no device available: every slot dead
         avail[:] = False
-    elif case == "nan":       # NaN utilities rank first and are dead
+    elif case == "nan":       # NaN utilities rank last and are live
         blk = rng.permutation(S)[:max(1, S // 10)]
         cols[0][blk] = np.nan
         avail[blk] = True
-    elif case == "negzero":   # -0 and +0 utilities tie: lower index first
+    elif case == "negzero":   # -0 and +0 utilities: +0 ranks first (total order)
         blk = rng.permutation(S)[:max(1, S // 4)]
         cols[0][blk[::2]] = -0.0
         cols[2][blk[1::2]] = 1e9   # e above the headroom: utility +0
@@ -669,3 +669,88 @@ def test_dynamic_round_on_the_card_matches_the_cpu(dev, scenario):
             assert torch.equal(a[k], b[k]), k
         for k in ("global_loss", "round_energy", "round_latency", "mean_H_selected"):
             torch.testing.assert_close(b[k], a[k], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fedavg_nan_row_at_weight_zero_matches_plain(dev):
+    """The async buffer's shape, (buffer_m + K, P) = (30, 206,922), with
+    one row of NaNs at weight 0 (a stale dead slot): 0 · NaN = NaN at the
+    same positions as the plain version, the rest within atol 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(30, 206_922, generator=g, device=dev)
+    w = torch.rand(30, generator=g, device=dev)
+    x[7, ::7], w[7] = float("nan"), 0.0
+    got, want = fedavg_ops.weighted_aggregate(x, w), fedavg_ref.weighted_aggregate(x, w)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and int(nan.sum()) == -(-206_922 // 7)
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=0, atol=1e-5)
+
+
+# (scenario, AsyncCfg fields or None)
+CHAOS_ROUNDS = [("static-paper", dict(buffer_m=2, delay_jitter=0.3)),
+                ("static-paper", dict(buffer_m=4, delay="unit")),
+                ("lossy-uplink", None), ("flaky-fleet", None),
+                ("flaky-fleet", dict(buffer_m=2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario,akw", CHAOS_ROUNDS)
+def test_async_and_fault_rounds_on_the_card_match_the_cpu(dev, scenario, akw):
+    """Three rounds of rewafl, async or under a fault scenario, on the card
+    and on the CPU from the same state and draws (fault and jitter draws
+    included): selections and every integer metric bitwise, the buffer's
+    integer leaves bitwise, floats within rtol 1e-3; on the card fedavg
+    launches 1 + ceil(K / M) times a round async, once sync."""
+    from repro_torch.core.async_agg import AsyncCfg
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import draw_noise, make_async_round_body, make_round_body
+    from repro_torch.core.state import init_async_state, init_fleet_state
+    from repro_torch.launch.fl_run import build_task, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import SCENARIOS, init_env_state
+    S, K, n, R = 10, 4, 32, 3
+    cfg, sc = quick_cfg(K), SCENARIOS[scenario]
+    acfg = AsyncCfg(**akw) if akw is not None else None
+    model = make_fl_model("cnn@mnist", small=True)
+    params = model.init(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(1)
+    noise = [draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n, sc.dynamic,
+                        sc.faults.enabled, acfg is not None and acfg.delay_jitter > 0)
+             for _ in range(R)]
+    env_u = torch.rand(4, S, generator=torch.Generator().manual_seed(3))
+    spec = METHODS["rewafl"]
+    body = (make_round_body(model, cfg, spec, sc) if acfg is None
+            else make_async_round_body(model, cfg, spec, sc, acfg))
+    out = {}
+    for d in ("cpu", dev):
+        fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
+                            init_energy_std=0.04, e0_frac=0.08)
+        cx, cy, _ = build_task("cnn@mnist", S, 0.8, per_client=n, n_test=8, device=d)
+        p, st = {k: v.to(d) for k, v in params.items()}, init_fleet_state(fleet, H0=cfg.policy.H0)
+        env = init_env_state(fleet, sc, env_u.to(d))
+        ast = (init_async_state(model.layout.flatten(p), S, acfg.slots(K))
+               if acfg is not None else None)
+        before = fedavg_ops.launches
+        ms = []
+        for r in range(R):
+            if acfg is None:
+                p, st, env, m = body(p, st, env, fleet, cx, cy, noise[r].to(d), r)
+            else:
+                p, st, ast, env, m = body(p, st, ast, env, fleet, cx, cy, noise[r].to(d), r)
+            ms.append({k: v.cpu() for k, v in m.items()})
+        out[str(d)] = ms, ast, fedavg_ops.launches - before
+    (cpu, cpu_ast, cpu_launches), (card, card_ast, card_launches) = out["cpu"], out[str(dev)]
+    for a, b in zip(cpu, card):
+        assert set(a) == set(b)
+        for k in a:
+            if a[k].is_floating_point():
+                torch.testing.assert_close(b[k], a[k], rtol=1e-3, atol=1e-5, equal_nan=True)
+            else:
+                assert torch.equal(a[k], b[k]), k
+    if acfg is not None:
+        for k, x in cpu_ast._asdict().items():
+            if not x.is_floating_point():
+                assert torch.equal(x, getattr(card_ast, k).cpu()), k
+    per_round = 1 if acfg is None else 1 + acfg.lands(K)
+    assert cpu_launches == 0 and card_launches == per_round * R

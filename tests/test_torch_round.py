@@ -46,13 +46,17 @@ from repro_torch.sim.dynamics import init_env_state as t_init_env_state
 ATOL, RTOL = 1e-5, 1e-5
 
 
-def round_noise_from_key(kr, S, K, H_max, B, n, dynamic=False) -> RoundNoise:
+def round_noise_from_key(kr, S, K, H_max, B, n, dynamic=False, faults=False,
+                         jitter=False) -> RoundNoise:
     """The draws the reference round makes from its round key `kr`
     (`core/round.py:232`, `sim/wireless.py:14`, `core/selection.py:38`,
     `core/round.py:121-122,396`), as the port's RoundNoise. `dynamic`:
     the key splits in four, the first for the environment step, which
     splits it in three for its channel, plug and online uniforms
-    (`core/round.py:227`, `sim/dynamics/env.py:79`)."""
+    (`core/round.py:227`, `sim/dynamics/env.py:79`). `faults`: the (6, S)
+    fault uniforms from `fold_in(kr, FAULT_SALT)` (`sim/faults.py:135`);
+    `jitter`: the async delays' (K,) normal from `fold_in(kr, 0xA57C)`
+    (`core/round.py:445`)."""
     env_u = None
     if dynamic:
         k_env, k_rate, k_sel, k_train = jax.random.split(kr, 4)
@@ -66,12 +70,21 @@ def round_noise_from_key(kr, S, K, H_max, B, n, dynamic=False) -> RoundNoise:
     bidx = jax.vmap(lambda kk: jax.vmap(
         lambda it: jax.random.randint(jax.random.fold_in(kk, it), (B,), 0, n)
     )(its))(jax.random.split(k_train, K))
+    fault_u = delay_eps = None
+    if faults:
+        fault_u = torch.from_numpy(np.array(
+            jax.random.uniform(jax.random.fold_in(kr, 0xFA17), (6, S))))
+    if jitter:
+        delay_eps = torch.from_numpy(np.array(
+            jax.random.normal(jax.random.fold_in(kr, 0xA57C), (K,))))
     return RoundNoise(torch.from_numpy(np.array(eps)),
                       torch.from_numpy(np.array(u)),
-                      torch.from_numpy(np.array(bidx, np.int64)), env_u)
+                      torch.from_numpy(np.array(bidx, np.int64)), env_u,
+                      fault_u, delay_eps)
 
 
-def jax_noise_fn(key, S, K, H_max, B, n, dynamic=False):
+def jax_noise_fn(key, S, K, H_max, B, n, dynamic=False, faults=False,
+                 jitter=False):
     """noise_fn for the port's run_rounds reproducing the reference
     engine's per-round `key, kr = split(key)` chain (engine.py:349)."""
     rounds = []
@@ -80,7 +93,8 @@ def jax_noise_fn(key, S, K, H_max, B, n, dynamic=False):
         nonlocal key
         while len(rounds) <= r:
             key, kr = jax.random.split(key)
-            rounds.append(round_noise_from_key(kr, S, K, H_max, B, n, dynamic))
+            rounds.append(round_noise_from_key(kr, S, K, H_max, B, n, dynamic,
+                                               faults, jitter))
         return rounds[r]
 
     return fn

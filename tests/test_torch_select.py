@@ -104,6 +104,68 @@ def test_large_k_mask_matches_oracle(eps, S, k, case):
     assert got.sum() == min(k, avail.sum()) and not (got & ~avail).any()
 
 
+@pytest.mark.parametrize("n_nan", [1, 3, 12, 40])
+@pytest.mark.parametrize("eps", [0.0, 0.25, 1.0])
+def test_nan_and_signed_zero_masks_match_oracle(eps, n_nan):
+    """NaN utilities (a NaN update landed in θ: the screen off under
+    corruption) and ±0 ones, held against the reference's CPU path
+    (`select_ref`: `lax.top_k`, the IEEE total order): a negative NaN
+    (what x86 arithmetic makes) below every value, the unavailable
+    devices' -1e30 included, so a NaN device is selected only when fewer
+    than K devices of the fleet have a number; +0 above -0. Masks
+    bitwise. The
+    reference's Pallas kernel does not define this case (with a NaN
+    among the utilities it selects no device at all), and ties ±0."""
+    S = 100
+    avail, leaves, _ = _case(n_nan, S, "random")
+    nan = np.random.RandomState(n_nan).permutation(S)[:2 * n_nan]
+    leaves[0][nan[:n_nan]] = -np.float32(np.nan)
+    leaves[0][nan[n_nan::2]] = 0.0
+    leaves[0][nan[n_nan + 1::2]] = -0.0
+    avail[nan[::2]] = True
+    if n_nan == 40:   # one number and the NaNs available
+        avail[:] = False
+        avail[nan[:n_nan + 1]] = True
+    key = jax.random.PRNGKey(n_nan)
+    u = np.array(jax.random.uniform(key, (S,)))
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    ta, tui, tu = _port(avail, leaves, u)
+    got = ops.select_mask(tu, K, ta, eps, ui=tui, **kw).numpy()
+    want = jref.select_ref(key, K, jnp.asarray(avail), eps, _jax_ui(leaves), **kw)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert not (got & ~avail).any()
+    numbers = ~np.isnan(leaves[0])
+    if eps == 0.0:   # NaN ranks below even the unavailable devices' -1e30
+        assert got.sum() == min(K, (avail & numbers).sum()) and not (got & ~numbers).any()
+
+
+def test_positive_nan_ranks_last_too():
+    """A positive NaN ranks last like a negative one (`lax.top_k` would put
+    it first: the sign a NaN carries depends on each library's ops)."""
+    v = torch.tensor([1.0, float("nan"), -float("nan"), 2.0, -0.0, 0.0, -np.inf])
+    assert sel.desc_order(v).tolist() == [3, 0, 5, 4, 6, 1, 2]
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.5])
+def test_nan_and_signed_zero_scores_match_reference(eps):
+    """The scores path (oort, autofl) in the same total order."""
+    S = 40
+    rng = np.random.RandomState(7)
+    scores = rng.uniform(0, 10, S).astype(np.float32)
+    scores[[1, 2, 5, 6]] = -np.float32(np.nan)
+    scores[[3, 7, 8]] = [0.0, -0.0, 0.0]
+    scores[[4, 9]] = [np.inf, -np.inf]
+    avail = rng.uniform(0, 1, S) >= 0.2
+    key = jax.random.PRNGKey(3)
+    u = np.array(jax.random.uniform(key, (S,)))
+    for k in (4, 12, 38):
+        got = ops.select_mask(torch.from_numpy(u), k, torch.from_numpy(avail), eps,
+                              scores=torch.from_numpy(scores)).numpy()
+        want = jops.select_mask(key, k, jnp.asarray(avail), eps,
+                                scores=jnp.asarray(scores), backend="xla")
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=str(k))
+
+
 @pytest.mark.parametrize("k", [257, 300])
 def test_large_k_mask_matches_pallas_interpret(k):
     """S 300, K 257 and K = S, against the Pallas kernel in interpret mode
