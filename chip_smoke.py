@@ -92,7 +92,24 @@ Phases, in order; any failure exits non-zero:
    card against the CPU (async M 2 with delay jitter, M = K unit, a slot
    TTL under 50x stragglers, lossy-uplink, flaky-fleet, flaky-fleet
    async): selections and every integer counter bitwise, losses, costs
-   and the virtual clock within rtol 1e-3; then `select_aggregate` (the select kernel, a
+   and the virtual clock within rtol 1e-3; then streaming telemetry at
+   full width, beside the dense run of the same call (`run_fl(...,
+   telemetry="streaming", health=HealthCfg(max_near_frac=None),
+   trace=...)`, launches counted from 0 as for the runs above: the
+   selection-count reducer equal to the dense `sel_count`, `tel/H/last`
+   to the final H, no per-device key in the history, the per-round
+   scalars within rtol 1e-3 of the dense run's, the trace's spans (chunk
+   and dispatch twice, history_drain, eval, health, transfer), the health
+   table and the span table printed, steady ms/round of both), async
+   streaming at M 10 (ASYNC_SPECS; fedavg 3 a round; the last virtual
+   clock equal to the history's), and small streaming runs with the
+   health monitors on the card against the CPU (rewafl static and
+   churn-heavy, async M 2 with jitter, flaky-fleet with FAULT_SPECS):
+   integer reducers and health samples bitwise, float reducers within
+   rtol 1e-3, quantiles within one bin width, and the histogram bins of
+   NaN, ±inf and values beyond int32 on the card and the CPU (the
+   compiled reference's: NaN and -inf first, +inf last); then
+   `select_aggregate` (the select kernel, a
    K-row gather and the fedavg kernel) against its plain version (the
    dense masked sum) at S 100, K 20, P 206,922 and S 8,193, K 257, P
    4,096, eps 0 and 0.1, ~30% and all but K/2 devices unavailable: masks
@@ -117,7 +134,9 @@ Phases, in order; any failure exits non-zero:
 
 `--profile` adds, before the last lines, the device time of 5 FL-path
 rounds by kernel, and of 5 rounds of rewafl on lstm@shakespeare, from
-torch.profiler, and the device's busy share: that
+torch.profiler, with the engine's host phases (the trace spans, entered
+as `record_function` ranges by `Tracer(profiler=True)`), and the
+device's busy share: that
 device time over the wall time of the same 5 rounds run without the
 profiler (which slows the host), and over the profiled wall time; then,
 for each serving path, the device time by kernel of one full-width
@@ -1153,6 +1172,200 @@ def phase_small_chaos_agreement(dev) -> None:
               f"max relative difference {json.dumps(rel)})", flush=True)
 
 
+# ------------------------------- streaming telemetry, health and trace
+
+def _steady_ms(res) -> float:
+    return float(res.chunk_wall_s[-1]) / int(res.chunk_rounds[-1]) * 1e3
+
+
+def phase_streaming(dev) -> dict:
+    """The streaming-telemetry path at full width, each run its own path
+    with the counts read just after it: the dense run of the main call,
+    then the same call with `telemetry="streaming"`, the health monitors
+    and the trace (`tel/selected/count` equal to the dense `sel_count`,
+    `tel/H/last` to the final H, no per-device key in the history, the
+    per-round scalars within rtol 1e-3 of the dense run's; the health
+    table and the trace's phase table printed, the trace's spans
+    checked), then async streaming (ASYNC_SPECS: `tel/wall_clock/last`
+    equal to the history's last virtual clock). Returns the launch
+    counts by path."""
+    import tempfile
+
+    from repro_torch.core.metrics import ASYNC_SPECS, DEFAULT_SPECS, PER_DEVICE_METRICS
+    from repro_torch.launch.fl_run import HIST_KEYS
+    from repro_torch.obs import HealthCfg, format_health_table, format_span_table
+    by_path = {}
+    dense, _ = phase_chaos_run(dev, "cnn@mnist rewafl dense (beside streaming)")
+    hcfg = HealthCfg(max_near_frac=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "streaming.trace.json")
+        res, by_path["streaming"] = phase_chaos_run(
+            dev, "cnn@mnist rewafl streaming", telemetry="streaming", health=hcfg,
+            trace=path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    h, tel = res.history, res.telemetry
+    check(np.array_equal(tel["tel/selected/count"], dense.history["sel_count"])
+          and np.array_equal(h["sel_count"], dense.history["sel_count"]),
+          f"streaming: selection counts {tel['tel/selected/count'].tolist()} vs dense "
+          f"{dense.history['sel_count'].tolist()}")
+    check(np.array_equal(tel["tel/H/last"], res.final_state.H.cpu().numpy()),
+          "streaming: tel/H/last differs from the final H")
+    # the final state's (S,) leaves (residual_energy, ...) stay; no trace
+    traces = ({k for k, v in h.items() if np.ndim(v) > 1}
+              | ((set(PER_DEVICE_METRICS) - {"residual_energy"}) | {"H_trace", "n_selected"})
+              & set(h))
+    check(not traces, f"streaming: per-device traces in the history: {sorted(traces)}")
+    specs = DEFAULT_SPECS + hcfg.quantile_specs(PATH_ROUNDS, float(h["init_energy"].max()))
+    check(sorted(tel) == sorted(sp.out_key for sp in specs),
+          f"streaming: telemetry keys {sorted(tel)}")
+    for k in HIST_KEYS:
+        check(np.allclose(h[k], dense.history[k], rtol=1e-3, atol=1e-5),
+              f"streaming: {k} {h[k]} vs dense {dense.history[k]}")
+    for k, v in tel.items():
+        check(bool(np.all(np.isfinite(np.asarray(v, np.float64)))),
+              f"streaming: {k} is not finite")
+    rep = res.health
+    check(rep is not None and [sm["round"] for sm in rep.samples] == [2, 5],
+          f"streaming: health samples {rep and rep.samples}")
+    names = {}
+    for e in events:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    want = {"run_fl": 1, "chunk": 2, "dispatch": 2, "history_drain": 2, "eval": 2,
+            "health": 2, "transfer": 1}
+    check(names == want, f"streaming: trace spans {names}, not {want}")
+    print("streaming: " + json.dumps({
+        "sel_count_equals_dense": True, "steady_ms_per_round":
+        {"streaming": _steady_ms(res), "dense": _steady_ms(dense)},
+        "health_ok": rep.ok, "health": rep.metrics, "warnings": rep.warnings}), flush=True)
+    for line in format_health_table(rep).splitlines():
+        print(f"streaming health: {line}", flush=True)
+    for line in format_span_table(res.spans).splitlines():
+        print(f"streaming spans: {line}", flush=True)
+
+    res, by_path["streaming async"] = phase_chaos_run(
+        dev, "cnn@mnist rewafl streaming async", aggregation="async", telemetry="streaming")
+    tel = res.telemetry
+    check(sorted(tel) == sorted(sp.out_key for sp in ASYNC_SPECS),
+          f"streaming async: telemetry keys {sorted(tel)}")
+    check(float(tel["tel/wall_clock/last"]) == res.history["wall_clock"][-1],
+          f"streaming async: tel/wall_clock/last {float(tel['tel/wall_clock/last'])} vs "
+          f"the history's {res.history['wall_clock'][-1]}")
+    check(int(tel["tel/update_staleness/max"].max()) >= 0
+          and "H_trace" not in res.history, "streaming async: telemetry")
+    print(f"streaming async: tel/wall_clock/last {float(tel['tel/wall_clock/last']):.3f} s "
+          f"equals the history's; steady {_steady_ms(res):.1f} ms/round", flush=True)
+    return by_path
+
+
+# (name, scenario, AsyncCfg fields or None, FAULT_SPECS appended) of the
+# small card-against-CPU streaming runs of rewafl on cnn@mnist, 4 rounds
+STREAM_RUNS = [("streaming static", "static-paper", None, False),
+               ("streaming churn-heavy", "churn-heavy", None, False),
+               ("streaming async M=2 jitter 0.3", "static-paper",
+                dict(buffer_m=2, delay_jitter=0.3), False),
+               ("streaming flaky-fleet FAULT_SPECS", "flaky-fleet", None, True)]
+
+
+def phase_small_streaming_agreement(dev) -> None:
+    """Streaming runs with the health monitors at S 10, K 4 on the card
+    against the same runs on the CPU, from the same draws: integer
+    reducer outputs (counts, maxima and last values of integer metrics)
+    bitwise, float ones within rtol 1e-3, the quantiles within one bin
+    width; the health samples (integer counts) and warnings bitwise."""
+    from repro_torch.core.async_agg import AsyncCfg
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.metrics import (ASYNC_SPECS, DEFAULT_SPECS, FAULT_SPECS,
+                                          TelemetryCfg)
+    from repro_torch.core.round import draw_noise, make_eval_fn
+    from repro_torch.launch.engine import run_rounds
+    from repro_torch.launch.fl_run import build_task, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.obs import HealthCfg
+    from repro_torch.sim.devices import build_fleet
+    from repro_torch.sim.dynamics import get_scenario, init_env_state
+    S, K, n, R = 10, 4, 32, 4
+    cfg, spec, hcfg = quick_cfg(K), METHODS["rewafl"], HealthCfg(max_near_frac=None)
+    model = make_fl_model("cnn@mnist", small=True)
+    params = model.init(torch.Generator().manual_seed(2))
+    for name, scenario, akw, faults in STREAM_RUNS:
+        sc = get_scenario(scenario)
+        acfg = AsyncCfg(**akw) if akw is not None else None
+        specs = (ASYNC_SPECS if acfg is not None else DEFAULT_SPECS) + (
+            FAULT_SPECS if faults else ())
+        tcfg = TelemetryCfg(mode="streaming", specs=specs)
+        gen = torch.Generator().manual_seed(1)
+        noise = [draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n, sc.dynamic,
+                            sc.faults.enabled, acfg is not None and acfg.delay_jitter > 0)
+                 for _ in range(R)]
+        env_u = torch.rand(4, S, generator=torch.Generator().manual_seed(3))
+        out = {}
+        for d in ("cpu", dev):
+            fleet = build_fleet(S, seed=0, device=d, init_energy_mean=0.11,
+                                init_energy_std=0.04, e0_frac=0.08)
+            cx, cy, test = build_task("cnn@mnist", S, 0.8, per_client=n, n_test=64, device=d)
+            out[str(d)] = run_rounds(
+                model, fleet, cx, cy, cfg, spec, rounds=R,
+                params={k: v.to(d) for k, v in params.items()}, chunk_size=2,
+                eval_fn=make_eval_fn(model, test["x"], test["y"]),
+                noise_fn=lambda r, d=d: noise[r].to(d), scenario=sc,
+                env=init_env_state(fleet, sc, env_u.to(d)), async_cfg=acfg,
+                telemetry=tcfg, health=hcfg, device=d)
+        a, b = out["cpu"], out[str(dev)]
+        check(set(a.telemetry) == set(b.telemetry), f"small run {name}: telemetry keys differ")
+        widths = {sp.out_key: (sp.hi - sp.lo) / sp.bins for sp in
+                  hcfg.quantile_specs(R, float(fleet.init_energy.max()))}
+        rel = {}
+        for k, v in a.telemetry.items():
+            w = b.telemetry[k]
+            if k in widths:
+                check(abs(float(v) - float(w)) <= widths[k] + 1e-6,
+                      f"small run {name}: {k} {float(v)} vs {float(w)} (bin {widths[k]})")
+            elif v.dtype.kind in "biu":
+                check(np.array_equal(v, w), f"small run {name}: {k} differs: {v} vs {w}")
+            else:
+                check(np.allclose(v, w, rtol=1e-3, atol=1e-5),
+                      f"small run {name}: {k} differs: {v} vs {w}")
+                dk = np.abs(np.asarray(v, np.float64) - w)
+                rel[k] = float(np.max(dk / np.maximum(np.abs(v), 1e-30)))
+        check(a.health.samples == b.health.samples and a.health.warnings == b.health.warnings,
+              f"small run {name}: health samples {a.health.samples} vs {b.health.samples}")
+        if faults:
+            check(all(float(a.telemetry[sp.out_key]) == float(a.history[sp.metric].sum())
+                      for sp in FAULT_SPECS), f"small run {name}: fault sums")
+        print(f"small run {name}: {R} rounds on the card agree with the CPU run (integer "
+              f"reducers and health samples bitwise, quantiles within a bin; max relative "
+              f"difference {json.dumps(rel)})", flush=True)
+    phase_special_bins(dev)
+
+
+def phase_special_bins(dev) -> None:
+    """The histogram bin of NaN, ±inf and values beyond int32 on the card
+    and on the CPU: the port clamps in float before converting to int32,
+    so both give the compiled reference's bins (NaN and -inf the first,
+    +inf and values past the range the last; tests/test_torch_metrics.py
+    holds the CPU's against the reference)."""
+    from repro_torch.core.metrics import (MetricSpec, TelemetryCfg, init_telemetry,
+                                          update_telemetry)
+    x = torch.tensor([float("nan"), -float("nan"), float("inf"), -float("inf"), 3e9, -3e9,
+                      2.0 ** 31, -2.0 ** 31, 1e38, -1e38, 0.0, -0.0, 0.5, 1.0])
+    tcfg = TelemetryCfg(mode="streaming", specs=(MetricSpec("x", "p50"),
+                                                 MetricSpec("x", "p95")))
+    want = torch.zeros(64)
+    want[0], want[32], want[63] = 8, 1, 5
+    for d in ("cpu", dev):
+        c = init_telemetry(tcfg, {"x": x.to(d)})
+        counts = update_telemetry(tcfg, c, {"x": x.to(d)}, 0).reducers["x/hist64@0.0:1.0"]
+        check(torch.equal(counts.counts.cpu(), want),
+              f"special bins on {d}: {counts.counts.nonzero().flatten().tolist()}")
+    print("special bins: NaN, -NaN, -inf, -3e9, -2**31, -1e38, 0, -0 in bin 0; 0.5 in bin "
+          "32; +inf, 3e9, 2**31, 1e38, 1.0 in bin 63, on the card as on the CPU", flush=True)
+    # what each device's own float-to-int32 conversion makes of them
+    print(f"special values {x[:10].tolist()} as int32: card "
+          f"{x[:10].to(dev).to(torch.int32).cpu().tolist()}, CPU "
+          f"{x[:10].to(torch.int32).tolist()}", flush=True)
+
+
 # ------------------------------------------------------- select_aggregate
 
 # (S, K, P): the paper CNN's parameters at the FL cell's fleet; a fleet
@@ -1376,13 +1589,14 @@ def _to(tree, dev):
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
 
-def _device_kernels(prof):
+def _device_kernels(prof, exclude=()):
     """Device-side kernel events, largest first, and their summed time (s).
     Only kernels: an aten op's device time repeats the time of the kernels
-    it launched."""
+    it launched, and so does a named range (`exclude`: the names of
+    `record_function` ranges)."""
     ev = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.self_device_time_total > 0]
+          and e.self_device_time_total > 0 and e.key not in exclude]
     ev.sort(key=lambda e: -e.self_device_time_total)
     return ev, sum(e.self_device_time_total for e in ev) / 1e6
 
@@ -1427,6 +1641,7 @@ def phase_profile(dev, task: str = "cnn@mnist", method: str = "rewafl",
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.fl_run import run_fl
+    from repro_torch.obs import Tracer, tracing
     kw = dict(small=False, n_clients=MAIN_S, n_select=MAIN_K, rounds=rounds,
               eval_every=rounds, device=dev)
     run_fl(task, method, **kw)   # warm-up
@@ -1435,10 +1650,16 @@ def phase_profile(dev, task: str = "cnn@mnist", method: str = "rewafl",
         float(run_fl(task, method, **kw).chunk_wall_s.sum())
         for _ in range(3))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res = run_fl(task, method, **kw)
+        # the engine's phases, as named ranges on the profile's timeline
+        with tracing(Tracer(profiler=True)) as tracer:
+            res = run_fl(task, method, **kw)
         torch.cuda.synchronize()
     rounds_s = float(res.chunk_wall_s.sum())
-    ev, busy_s = _device_kernels(prof)
+    phases = {k: round(v["total_s"] * 1e3, 3) for k, v in tracer.summary().items()}
+    print(f"profile {task} {method}: host phases under the profiler (ms, the "
+          f"tracer's clock) {json.dumps(phases)}", flush=True)
+    # the ranges also show on the device timeline: they are not kernels
+    ev, busy_s = _device_kernels(prof, exclude={e["name"] for e in tracer.events})
     print(f"profile {task} {method}: {sum(e.count for e in ev)} kernels in {rounds} "
           f"rounds (eval included), device busy {busy_s * 1e3:.1f} "
           f"ms; wall {plain_s * 1e3:.1f} ms without the profiler (median of "
@@ -1557,6 +1778,10 @@ def main() -> None:
     # the counts read just after it
     chaos_counts = phase_async_and_faults(dev)
     phase_small_chaos_agreement(dev)
+    # streaming telemetry with the health monitors and the trace, sync and
+    # async, each its own path with the counts read just after it
+    chaos_counts.update(phase_streaming(dev))
+    phase_small_streaming_agreement(dev)
     agg = phase_select_aggregate(dev)
     print(f"time select_aggregate: composed {agg['ms']:.5f} ms (issued from Python "
           f"{agg['eager_ms']:.5f} ms), select_mask + slots + gather + "

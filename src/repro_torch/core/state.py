@@ -1,12 +1,27 @@
-"""Fleet state carried across FL rounds (all (S,) tensors), and the async
-mode's virtual clock and pending-update buffer."""
+"""Fleet state carried across FL rounds (all (S,) tensors), the async
+mode's virtual clock and pending-update buffer, and the streaming
+telemetry's reducer states."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import torch
 
 from repro_torch.sim.devices import DeviceFleet
+
+
+class TelemetryCarry(NamedTuple):
+    """Streaming-telemetry reducer states, carried across rounds and
+    chunks beside FleetState when `TelemetryCfg(mode="streaming")` is on.
+
+    `reducers` maps a `core.metrics.MetricSpec.state_key` to that
+    reducer's state on the run's device (running sums, Welford moments,
+    ring snapshot buffers, fixed-bin quantile histograms, ...): O(S) (or
+    O(bins) for the p50/p95 tails) per per-device metric instead of an
+    O(R·S) dense history. Built, folded and drained by
+    `core.metrics.init_telemetry / update_telemetry /
+    finalize_telemetry`."""
+    reducers: Dict[str, Any]
 
 
 class FleetState(NamedTuple):

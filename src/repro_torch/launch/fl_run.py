@@ -2,23 +2,34 @@
 
 Builds the synthetic task, the device fleet, and runs FL rounds under a
 chosen PS method until target accuracy or a round budget, on a CUDA
-device by default. The port of `repro.launch.fl_run` for dense
-telemetry: sync or async (FedBuff-style) aggregation, on the static
-fleet and every fleet-dynamics scenario, the two fault scenarios
-included.
+device by default. The port of `repro.launch.fl_run`'s chunked engine:
+sync or async (FedBuff-style) aggregation, on the static fleet and every
+fleet-dynamics scenario, the two fault scenarios included, with dense or
+streaming telemetry, the fleet-health monitors and the engine's trace
+spans.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.fl_run \
           --task cnn@mnist --method rewafl --rounds 100 \
           [--scenario flaky-fleet] [--probe-every 2] \
-          [--aggregation async --buffer-m 10 --async-delay wall]
+          [--aggregation async --buffer-m 10 --async-delay wall] \
+          [--telemetry streaming] [--health | --health-strict] \
+          [--trace out.trace.json]
 (`--device cpu` runs on the CPU; without a GPU the default raises.)
+
+Observability (`repro_torch.obs`): `--trace PATH` records the engine's
+host spans (chunk / dispatch / history drain / eval / health / transfer)
+as Perfetto-loadable Chrome trace JSON; `--health` samples the
+fleet-health monitors (flat batteries, near-depletion, selection Gini,
+staleness tails) at chunk boundaries and `--health-strict` turns a
+tripped threshold into exit code 3. Progress chatter goes through the
+`repro_torch` logger (`--quiet` / `-v`); the final JSON stays on stdout.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-import logging
+import sys
 import time
 from typing import Dict, Optional
 
@@ -28,6 +39,7 @@ import torch
 from repro_torch.common import resolve_device
 from repro_torch.core.async_agg import DELAY_MODES, AsyncCfg
 from repro_torch.core.methods import METHODS
+from repro_torch.core.metrics import ASYNC_SPECS, DEFAULT_SPECS, TelemetryCfg
 from repro_torch.core.policy import PolicyCfg
 from repro_torch.core.round import FLConfig, make_eval_fn
 from repro_torch.core.state import AsyncState, FleetState
@@ -36,10 +48,13 @@ from repro_torch.data.synthetic import (make_char_dataset, make_har_dataset,
                                         make_image_dataset)
 from repro_torch.launch.engine import run_rounds
 from repro_torch.models.fl_models import make_fl_model
+from repro_torch.obs.health import HealthCfg, HealthReport, format_health_table
+from repro_torch.obs.log import configure_logging, get_logger
+from repro_torch.obs.trace import Tracer, format_span_table, tracing
 from repro_torch.sim.devices import build_fleet
 from repro_torch.sim.dynamics import SCENARIOS, get_scenario, init_env_state
 
-log = logging.getLogger(__name__)
+log = get_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -61,6 +76,14 @@ class RunResult:
     chunk_rounds: Optional[np.ndarray] = None
     wall_clock_s: Optional[float] = None   # async: final virtual time
     async_state: Optional[AsyncState] = None   # async: final buffer
+    # streaming telemetry only: the reducers' outputs
+    # (`tel/<metric>/<reducer>` -> (S,) aggregates; see core.metrics)
+    telemetry: Optional[Dict[str, np.ndarray]] = None
+    # the fleet-health verdict (obs.health) when run_fl(health=...) was set
+    health: Optional[HealthReport] = None
+    # span aggregates ({name: {count, total_s, mean_s, max_s}}) when
+    # run_fl(trace=...) recorded the run's engine phases
+    spans: Optional[Dict[str, Dict[str, float]]] = None
 
 
 def build_task(task: str, n_clients: int, lam: float, *, per_client: int = 128,
@@ -126,12 +149,14 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
            alpha: float = 1.0, beta: float = 1.0,
            seed: int = 0, per_client: int = 64, small: bool = True,
            fl_cfg: Optional[FLConfig] = None, fleet_kwargs: Optional[dict] = None,
-           eval_every: int = 5, verbose: bool = False, chunk_size: int = 8,
-           scenario: str = "static-paper", probe_every: int = 1,
-           telemetry: str = "dense", aggregation: str = "sync",
-           buffer_m: Optional[int] = None, staleness_power: float = 0.5,
-           delay_jitter: float = 0.0, async_delay: str = "wall",
-           trace: Optional[str] = None, checkpoint_every: Optional[int] = None,
+           eval_every: int = 5, verbose: bool = False, engine: str = "scan",
+           chunk_size: int = 8, scenario: str = "static-paper",
+           probe_every: int = 1, telemetry: str = "dense",
+           aggregation: str = "sync", buffer_m: Optional[int] = None,
+           staleness_power: float = 0.5, delay_jitter: float = 0.0,
+           async_delay: str = "wall", trace: Optional[str] = None,
+           health: Optional[HealthCfg] = None,
+           checkpoint_every: Optional[int] = None, resume: Optional[str] = None,
            fleet_shards: Optional[int] = None,
            device="cuda") -> RunResult:
     """Run one FL campaign on `device` (a CUDA device by default).
@@ -159,9 +184,32 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     `buffer_m=n_select`, `async_delay="unit"` and no jitter the run is
     the sync run, bitwise.
 
-    Streaming telemetry and `trace` (ROADMAP A12), `checkpoint_every`
-    (A14) and `fleet_shards` above 1 (A16) are not ported: they raise
-    NotImplementedError."""
+    `telemetry="streaming"` folds `core.metrics.DEFAULT_SPECS` (async:
+    `ASYNC_SPECS`) on the device instead of keeping (R, S) traces: the
+    history has no `H_trace` (nor the port's `n_selected`), `sel_count`
+    comes from the `tel/selected/count` reducer, and the aggregates land
+    in `RunResult.telemetry`. `health=HealthCfg(...)` samples the
+    fleet-health monitors at every chunk boundary and sets
+    `RunResult.health`. `trace="out.trace.json"` records the engine's
+    phase spans under a `run_fl` span, writes them as Chrome trace-event
+    JSON and sets `RunResult.spans`; tracing is host-side only, and the
+    run's numbers are bitwise those of the untraced run.
+
+    Not ported, raising NotImplementedError: `engine="loop"`, the
+    reference's one-dispatch-per-round loop (ROADMAP A13; the port's
+    engine is the chunked one, `engine="scan"`), `checkpoint_every` and
+    `resume` (A14), and `fleet_shards` above 1 (A16)."""
+    if trace is not None:
+        kw = dict(locals())
+        kw.pop("trace")
+        with tracing(Tracer()) as tracer:
+            with tracer.span("run_fl", task=task, method=method):
+                res = run_fl(trace=None, **kw)
+        tracer.write(trace)
+        res.spans = tracer.summary()
+        return res
+    if engine not in ("scan", "loop"):
+        raise ValueError(f"unknown engine {engine!r} (use 'scan' or 'loop')")
     if telemetry not in ("dense", "streaming"):
         raise ValueError(f"unknown telemetry {telemetry!r} "
                          "(use 'dense' or 'streaming')")
@@ -171,8 +219,8 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     # the reference's options the port does not have yet, each with the
     # ROADMAP item that brings it
     for name, val, on, item in (
-            ("telemetry", telemetry, telemetry == "streaming", "A12"),
-            ("trace", trace, trace is not None, "A12"),
+            ("engine", engine, engine == "loop", "A13"),
+            ("resume", resume, resume is not None, "A14"),
             ("checkpoint_every", checkpoint_every, checkpoint_every is not None, "A14"),
             ("fleet_shards", fleet_shards, (fleet_shards or 1) > 1, "A16")):
         if on:
@@ -197,6 +245,9 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
                                   else max(1, cfg.n_select // 2)),
                         delay=async_delay, delay_jitter=delay_jitter,
                         staleness_power=staleness_power)
+    streaming = telemetry == "streaming"
+    tcfg = TelemetryCfg(mode=telemetry,
+                        specs=ASYNC_SPECS if acfg is not None else DEFAULT_SPECS)
     env_u = None
     if scen.dynamic:
         env_gen = torch.Generator(device=dev).manual_seed(seed + 3)
@@ -208,7 +259,8 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         chunk_size=max(1, min(chunk_size, eval_every)),
         eval_fn=make_eval_fn(model, test["x"], test["y"]),
         target_acc=target_acc, scenario=scen,
-        env=init_env_state(fleet, scen, env_u), async_cfg=acfg, device=dev)
+        env=init_env_state(fleet, scen, env_u), async_cfg=acfg,
+        telemetry=tcfg, health=health, device=dev)
     h = res.history
     if verbose:
         ends = np.cumsum(res.chunk_rounds) - 1
@@ -217,17 +269,24 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
                      f"loss={h['global_loss'][r_end]:.4f} "
                      f"drop={int(h['n_dropped'][r_end])}")
     empty = np.zeros(0)
+    if streaming:   # the per-device traces live in the O(S) reducers
+        per_dev = {"sel_count": np.asarray(res.telemetry["tel/selected/count"],
+                                           np.int64)}
+    else:
+        sel = np.asarray(h.get("selected", empty))
+        per_dev = {
+            "sel_count": sel.sum(0).astype(np.int64),
+            # devices selected per round (the port's; derived like sel_count)
+            "n_selected": sel.sum(-1).astype(np.int64),
+            "H_trace": np.asarray(h.get("H", empty)),
+        }
     hist_keys = HIST_KEYS + (ASYNC_HIST_KEYS if acfg is not None else ())
     return RunResult(
         task=task, method=method, rounds_run=res.rounds_run,
         reached_round=res.reached_round, target_acc=target_acc,
         history={k: np.asarray(h.get(k, empty), np.float64) for k in hist_keys}
         | {k: np.asarray(h[k], np.float64) for k in FAULT_HIST_KEYS if k in h}
-        | {
-            "sel_count": np.asarray(h.get("selected", empty)).sum(0).astype(np.int64),
-            # devices selected per round (the port's; derived like sel_count)
-            "n_selected": np.asarray(h.get("selected", empty)).sum(-1).astype(np.int64),
-            "H_trace": np.asarray(h.get("H", empty)),
+        | per_dev | {
             "residual_energy": res.state.residual_energy.cpu().numpy(),
             "init_energy": fleet.init_energy.cpu().numpy(),
             "type_id": fleet.type_id.cpu().numpy(),
@@ -242,13 +301,13 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         chunk_wall_s=res.chunk_wall_s, chunk_rounds=res.chunk_rounds,
         wall_clock_s=(float(h["wall_clock"][-1])
                       if acfg is not None and res.rounds_run else None),
-        async_state=res.async_state)
+        async_state=res.async_state, telemetry=res.telemetry, health=res.health)
 
 
 def summary(res: RunResult, *, scenario: str, telemetry: str,
             aggregation: str, wall_s: float) -> dict:
-    """The CLI's stdout JSON — the reference's keys; those of options the
-    port does not have (health, checkpoints) report None or 0."""
+    """The CLI's stdout JSON — the reference's keys; those of the option
+    the port does not have (checkpoints) report None or 0."""
     return {
         "task": res.task, "method": res.method,
         "scenario": scenario, "telemetry": telemetry,
@@ -259,7 +318,7 @@ def summary(res: RunResult, *, scenario: str, telemetry: str,
         "overall_energy_kj": res.overall_energy_j / 1e3,
         "wall_clock_s": res.wall_clock_s,
         "final_acc": (float(res.acc_curve[-1]) if len(res.acc_curve) else None),
-        "health_ok": None,
+        "health_ok": res.health.ok if res.health is not None else None,
         "fault_totals": {k: float(np.sum(res.history[k]))
                          for k in FAULT_HIST_KEYS if k in res.history},
         "carry_sha": None, "start_round": 0,
@@ -306,12 +365,39 @@ def main(argv=None) -> None:
     ap.add_argument("--full-width", action="store_true",
                     help="paper-scale model and FLConfig instead of the "
                          "width-reduced proxy and quick_cfg")
+    ap.add_argument("--telemetry", default="dense", choices=("dense", "streaming"),
+                    help="per-device history: 'dense' keeps (R, S) host "
+                         "buffers; 'streaming' folds O(S) reducers on the "
+                         "device instead")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the engine's phase spans to PATH as Chrome "
+                         "trace-event JSON (ui.perfetto.dev)")
+    ap.add_argument("--health", action="store_true",
+                    help="sample the fleet-health monitors (flat batteries, "
+                         "near-depletion, selection Gini, staleness tails) "
+                         "at chunk boundaries")
+    ap.add_argument("--health-strict", action="store_true",
+                    help="imply --health and exit 3 when any health "
+                         "threshold tripped")
+    ap.add_argument("--max-flat-frac", type=float, default=0.10,
+                    help="health: largest tolerated fraction of the fleet "
+                         "at/below the depletion floor")
+    ap.add_argument("--max-near-frac", type=float, default=0.50,
+                    help="health: largest tolerated fraction of the fleet "
+                         "within 50%% of the depletion floor (raise it for "
+                         "fleets that start low, like the default one)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a GPU) or 'cpu'")
-    ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--quiet", action="store_true",
+                    help="suppress progress chatter (warnings and the final "
+                         "JSON still print)")
+    ap.add_argument("-v", "--verbose", action="count", default=0,
+                    help="debug-level logging")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.WARNING if args.quiet else logging.INFO,
-                        format="%(message)s")
+    configure_logging(verbosity=args.verbose, quiet=args.quiet)
+    hcfg = (HealthCfg(max_flat_frac=args.max_flat_frac,
+                      max_near_frac=args.max_near_frac)
+            if args.health or args.health_strict else None)
     t0 = time.time()
     res = run_fl(args.task, args.method, rounds=args.rounds,
                  n_clients=args.clients, n_select=args.select, lam=args.lam,
@@ -322,10 +408,18 @@ def main(argv=None) -> None:
                  aggregation=args.aggregation, buffer_m=args.buffer_m,
                  staleness_power=args.staleness_power,
                  delay_jitter=args.delay_jitter, async_delay=args.async_delay,
+                 telemetry=args.telemetry, trace=args.trace, health=hcfg,
                  device=args.device)
-    print(json.dumps(summary(res, scenario=args.scenario, telemetry="dense",
+    if res.spans is not None:
+        log.info("%s", format_span_table(res.spans))
+        log.info("trace written to %s", args.trace)
+    if res.health is not None:
+        log.info("%s", format_health_table(res.health))
+    print(json.dumps(summary(res, scenario=args.scenario, telemetry=args.telemetry,
                              aggregation=args.aggregation,
                              wall_s=time.time() - t0), indent=1))
+    if args.health_strict and res.health is not None and not res.health.ok:
+        sys.exit(3)
 
 
 if __name__ == "__main__":

@@ -66,6 +66,17 @@ HIGH = dict(init_energy_mean=0.3)
 LOW = dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU rounds here are many small ops: one intra-op thread
+    runs them as fast as many, and keeps the parallel test workers from
+    oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t(x, dtype=None):
     return torch.from_numpy(np.array(x, dtype=dtype))
 

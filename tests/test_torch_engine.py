@@ -16,11 +16,13 @@ reference's draws and initial params (`run_fl_with_reference_draws`):
 what `run_fl` itself builds — fleet, data, config, chunks, evaluation —
 must give the reference's run.
 
-Also here: the CLI's stdout JSON, `--scenario` and `--probe-every`, the
-default device, the options the port does not have yet, and that the
-port imports neither JAX nor the JAX package.
+Also here: the CLI's stdout JSON, `--scenario` and `--probe-every`,
+`--health-strict`'s exit code, the default device, the options the port
+does not have yet, and that the port imports neither JAX nor the JAX
+package.
 """
 import ast
+import dataclasses
 import json
 import pathlib
 
@@ -36,6 +38,7 @@ from repro.launch import fl_run as j_fl_run
 from repro.launch.fl_run import build_task as j_build_task
 from repro.launch.fl_run import quick_cfg as j_quick_cfg
 from repro.models.fl_models import make_fl_model as j_make_model
+from repro.obs.health import HealthCfg as JHealthCfg
 from repro.sim.devices import build_fleet as j_build_fleet
 from repro.sim.dynamics import init_env_state as j_init_env_state
 from repro.sim.dynamics import get_scenario as j_get_scenario
@@ -45,13 +48,25 @@ from repro_torch.launch import fl_run
 from repro_torch.launch.engine import run_rounds
 from repro_torch.launch.fl_run import build_task, quick_cfg, run_fl
 from repro_torch.models.fl_models import make_fl_model, params_from_jax
+from repro_torch.obs.health import HealthCfg
 from repro_torch.sim.devices import build_fleet
-from repro_torch.sim.dynamics import EnvState, get_scenario, init_env_state
+from repro_torch.sim.dynamics import SCENARIOS, EnvState, get_scenario, init_env_state
 from tests.test_torch_round import jax_noise_fn
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 S, K, ROUNDS, CHUNK, N_PER, N_TEST = 10, 4, 8, 4, 64, 512
 FLEET = dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU rounds here are many small ops: one intra-op thread
+    runs them as fast as many, and keeps the parallel test workers from
+    oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _run_both(task, method, rounds, chunk, seed=0, scenario="static-paper"):
@@ -170,19 +185,19 @@ def test_run_fl_default_device_raises_without_a_gpu():
 
 
 # the ROADMAP item that brings each option the port does not have yet
-UNPORTED_ITEM = {"telemetry": "A12", "trace": "A12", "checkpoint_every": "A14",
+UNPORTED_ITEM = {"resume": "A14", "engine": "A13", "checkpoint_every": "A14",
                  "fleet_shards": "A16"}
 
 
-@pytest.mark.parametrize("kw", [dict(telemetry="streaming"),
-                                dict(trace="t.json"),
+@pytest.mark.parametrize("kw", [dict(resume="ckpts"),
+                                dict(engine="loop"),
                                 dict(checkpoint_every=2),
                                 dict(fleet_shards=2)])
 def test_unported_options_raise(kw):
     """Options of the reference's `run_fl` that the port does not have
-    yet raise, naming the ROADMAP item that brings them: streaming
-    telemetry and the trace (A12), checkpoints (A14), fleet sharding
-    (A16)."""
+    yet raise, naming the ROADMAP item that brings them: resuming and
+    writing checkpoints (A14), the per-round `loop` engine (A13), fleet
+    sharding (A16)."""
     args = dict(rounds=1, n_clients=4, n_select=2, device="cpu") | kw
     item = UNPORTED_ITEM[next(iter(kw))]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -191,16 +206,73 @@ def test_unported_options_raise(kw):
 
 @pytest.mark.parametrize("kw", [dict(scenario="lossy-uplink"),
                                 dict(scenario="flaky-fleet"),
-                                dict(aggregation="async")])
-def test_formerly_unported_options_run(kw):
-    """The fault scenarios (ROADMAP A11) and async aggregation (A10),
-    which raised until they were ported, run one CPU round."""
+                                dict(aggregation="async"),
+                                dict(telemetry="streaming"),
+                                dict(trace="t.json"),
+                                dict(health=HealthCfg())])
+def test_formerly_unported_options_run(kw, tmp_path):
+    """The fault scenarios (ROADMAP A11), async aggregation (A10),
+    streaming telemetry, the trace and the health monitors (A12), which
+    raised or were missing until they were ported, run one CPU round."""
+    if "trace" in kw:
+        kw = dict(trace=str(tmp_path / kw["trace"]))
     res = run_fl(rounds=1, n_clients=4, n_select=2, device="cpu", **kw)
     assert res.rounds_run == 1 and np.isfinite(res.history["global_loss"]).all()
     if "scenario" in kw:
         assert "n_lost" in res.history
-    else:
+    elif "aggregation" in kw:
         assert res.wall_clock_s is not None and res.wall_clock_s > 0
+    elif "telemetry" in kw:
+        assert "H_trace" not in res.history
+        np.testing.assert_array_equal(res.history["sel_count"],
+                                      res.telemetry["tel/selected/count"])
+    elif "trace" in kw:
+        names = {e["name"] for e in json.loads(pathlib.Path(kw["trace"]).read_text())
+                 ["traceEvents"]}
+        assert {"run_fl", "chunk", "dispatch", "eval", "transfer"} <= names
+        assert res.spans["chunk"]["count"] == 1
+    else:
+        assert [s["round"] for s in res.health.samples] == [0]
+        assert "sel_gini" in res.health.metrics
+
+
+# Background drain far beyond any battery's round budget, no chargers:
+# the whole fleet hits the depletion floor within a round or two (the
+# reference's tests/test_obs.py scenario)
+DRAIN_HEAVY = "test-drain-heavy"
+DRAIN_HEAVY_FIELDS = dict(name=DRAIN_HEAVY, minutes_per_round=30.0, idle_drain_w=500.0,
+                          plug_on_day=0.0, plug_on_night=0.0, frac_charging0=0.0)
+
+
+@pytest.fixture
+def drain_heavy(monkeypatch):
+    """The drain-heavy scenario registered under one name in both
+    packages' registries for the length of a test."""
+    from repro.sim.dynamics import SCENARIOS as J_SCENARIOS
+    for reg, get in ((SCENARIOS, get_scenario), (J_SCENARIOS, j_get_scenario)):
+        monkeypatch.setitem(reg, DRAIN_HEAVY, dataclasses.replace(
+            get("congested-urban"), **DRAIN_HEAVY_FIELDS))
+    return DRAIN_HEAVY
+
+
+@pytest.mark.parametrize("case", ["drain-heavy", "healthy"])
+def test_cli_health_strict_exit_code(capsys, drain_heavy, case):
+    """`--health-strict` exits 3 when a threshold tripped (the flat-battery
+    alarm of the drain-heavy scenario) and returns normally on a healthy
+    run; the JSON's `health_ok` follows the report."""
+    argv = ["--device", "cpu", "--rounds", "2", "--clients", "6", "--select", "2",
+            "--chunk-size", "1", "--quiet", "--health-strict"]
+    if case == "drain-heavy":
+        with pytest.raises(SystemExit) as e:
+            fl_run.main(argv + ["--scenario", drain_heavy])
+        assert e.value.code == 3
+        out = capsys.readouterr()
+        assert "flat-battery alarm" in out.err
+        assert json.loads(out.out)["health_ok"] is False
+    else:
+        fl_run.main(argv + ["--scenario", "overnight-charging", "--max-near-frac", "1.0"])
+        out = json.loads(capsys.readouterr().out)
+        assert out["health_ok"] is True
 
 
 def env_from_jax(jenv) -> EnvState:
@@ -248,6 +320,8 @@ def run_fl_with_reference_draws(monkeypatch, task="cnn@mnist", method="rewafl", 
     args = dict(rounds=8, n_clients=S, n_select=K, eval_every=4, seed=seed,
                 scenario=scenario, fleet_kwargs=FLEET) | kw
     got = run_fl(task, method, device="cpu", **args)
+    if isinstance(kw.get("health"), HealthCfg):   # the reference's own type
+        args["health"] = JHealthCfg(**dataclasses.asdict(kw["health"]))
     want = j_fl_run.run_fl(task, method, **args)
     return got, want, seen["cfg"]
 
