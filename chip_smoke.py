@@ -56,6 +56,15 @@ Phases, in order; any failure exits non-zero:
    between a cluster's blocks alone on the same clusters; rewafl_select
    at S 100 and 1e6, stat_util at S 1e6, and fedavg at the async land's
    (30, 206,922);
+   then the campaigns' batched calls (each kernel's op under
+   `torch.func.vmap`, one launch a call): fedavg at (18, 20, 206,922)
+   and (18, 40, 206,922) f32 with a NaN row at weight 0, within atol 1e-5
+   and bitwise the 18 single launches; rewafl_select at B 6 x S 100 and
+   B 3 x S 8,193 (~30% unavailable, NaN and ±0 utilities), bitwise the
+   plain version and the single launches; stat_util at 18 x (20, 32);
+   their times at the grid's shapes beside the plain batched versions, a
+   library call (`torch.bmm`, a batched `topk`, `vector_norm`) and the
+   bound;
 7. the FL path: `run_fl("cnn@mnist", "rewafl", small=False,
    n_clients=100, n_select=20, rounds=10)` on the card, with every
    kernel's launch count read just after (stat_util once a round); then
@@ -109,6 +118,21 @@ Phases, in order; any failure exits non-zero:
    rtol 1e-3, quantiles within one bin width, and the histogram bins of
    NaN, ±inf and values beyond int32 on the card and the CPU (the
    compiled reference's: NaN and -inf first, +inf last); then
+   the (method x seed) grid: `run_campaign_grid` of the six methods x
+   seeds {0, 1, 2} on cnn@mnist at full width (S 100, K 20), 6 rounds in
+   chunks of 3, per-seed fleets, streaming telemetry (DEFAULT_SPECS, rings
+   of H and the masks, the health quantiles), launches counted from 0
+   (fedavg and stat_util once a round for all 18 cells, rewafl_select
+   never), each cell against its single campaign (round 0's masks
+   bitwise, counters equal and losses within rtol 1e-3 until the masks
+   part, printed), its steady ms/round beside the sum of the 18 single
+   campaigns' and its peak memory; the per-method seed batch
+   (`run_campaign_batch` of rewafl over seeds 0-5: one batched
+   rewafl_select launch a round) against its singles the same way; the
+   loop engine (`run_fl(..., engine="loop")`, 6 rounds, evaluated at 0,
+   3 and 5) beside the chunked run; a small mixed sync x async grid and
+   a small flaky-fleet grid on the card against the CPU (selections and
+   counters bitwise, floats within rtol 1e-3); then
    `select_aggregate` (the select kernel, a
    K-row gather and the fedavg kernel) against its plain version (the
    dense masked sum) at S 100, K 20, P 206,922 and S 8,193, K 257, P
@@ -128,7 +152,9 @@ Phases, in order; any failure exits non-zero:
    within 5e-4 of their scale with f32 weights and 3e-2 with bf16 weights
    (f32 weights run the CUDA-core flash kernel and the cooperative slstm
    kernel, bf16 the tensor-core ones);
-9. a JSON line of `select_aggregate`'s check and times, one of kernels,
+9. a JSON line of `select_aggregate`'s check and times, one of the
+   grid's and the seed batch's ms/round beside their singles', one of
+   kernels (each FL kernel with its batched call's check and times),
    the card's name and power limit, and last `{"ok": true, "device":
    {...}}`.
 
@@ -141,7 +167,9 @@ device time over the wall time of the same 5 rounds run without the
 profiler (which slows the host), and over the profiled wall time; then,
 for each serving path, the device time by kernel of one full-width
 prefill, and of the same prefill with 8 decode steps, with the device's
-busy share of the serving run's unprofiled prefill and decode times.
+busy share of the serving run's unprofiled prefill and decode times;
+and the device time by kernel of one 3-round chunk of the 18-cell grid,
+with its busy share.
 
 Without a CUDA device, or without the repository's `src/` beside it, it
 exits non-zero and prints no result. It imports nothing of JAX.
@@ -1366,6 +1394,490 @@ def phase_special_bins(dev) -> None:
           f"{x[:10].to(torch.int32).tolist()}", flush=True)
 
 
+# ------------------------------------------- campaign grids and the loop
+
+GRID_SEEDS = (0, 1, 2)
+BATCH_SEEDS = tuple(range(6))
+GRID_ROUNDS, GRID_CHUNK = 6, 3
+# run_fl's default fleet: the paper's low-initial-battery regime
+FL_FLEET = dict(init_energy_mean=0.11, init_energy_std=0.04, e0_frac=0.08)
+GRID_CELLS = 6 * len(GRID_SEEDS)
+ASYNC_GRID_SLOTS = 2 * FEDAVG_K   # a mixed grid's buffer: max(M, K) + K slots
+
+
+def phase_batched_kernels(dev) -> dict:
+    """The batched calls against their plain versions, each called
+    the way a campaign calls it (its op under `torch.func.vmap`) with its
+    launches counted: fedavg at the grid's (18, 20, 206,922) f32 and a
+    mixed grid's async buffer (18, 40, 206,922) with a NaN row at weight 0,
+    within atol 1e-5 and bitwise the 18 single launches; rewafl_select at
+    B 6 x S 100, K 20 (eps 0 and 0.1) and B 3 x S 8,193 (K 20 and 257)
+    with ~30% unavailable, NaN and ±0 utilities, bitwise the plain
+    version and the B single launches; stat_util at the grid's 18 cells x
+    (20, 32), one (360, 32) launch within rtol 1e-5. Each batched call is
+    one launch. Returns the max errors."""
+    from repro_torch.core.selection import _explore_slots
+    from repro_torch.core.utility import UtilityInputs
+    from repro_torch.kernels.fedavg import ops as fops
+    from repro_torch.kernels.fedavg import ref as fref
+    from repro_torch.kernels.rewafl_select import ops as sops
+    from repro_torch.kernels.rewafl_select import ref as sref
+    from repro_torch.kernels.stat_util import ops as uops
+    from repro_torch.kernels.stat_util import ref as uref
+    vmap = torch.func.vmap
+    errs = {}
+    for name, K in (("grid", FEDAVG_K), ("mixed grid's async buffer", ASYNC_GRID_SLOTS)):
+        g = torch.Generator(device=dev).manual_seed(70 + K)
+        x = torch.randn(GRID_CELLS, K, FEDAVG_P, generator=g, device=dev)
+        w = torch.rand(GRID_CELLS, K, generator=g, device=dev)
+        w = w / w.sum(1, keepdim=True)
+        if K == ASYNC_GRID_SLOTS:   # a stale dead slot: 0 · NaN is NaN
+            x[5, 7, ::7] = float("nan")
+            w[5, 7] = 0.0
+        before = fops.launches
+        got = vmap(fops.weighted_aggregate)(x, w)
+        torch.cuda.synchronize()
+        n = fops.launches - before
+        singles = torch.stack([fops.weighted_aggregate(x[c], w[c]) for c in range(GRID_CELLS)])
+        want = fref.weighted_aggregate_batched(x, w)
+        nan = torch.isnan(want)
+        check(n == 1, f"fedavg batched ({name}): {n} launches for one call")
+        check(torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], singles[~nan]),
+              f"fedavg batched ({name}): differs from the {GRID_CELLS} single launches")
+        err = (got[~nan] - want[~nan]).abs().max().item()
+        check(err <= 1e-5, f"fedavg batched ({name}): max |kernel - plain| = {err}")
+        errs.setdefault("fedavg", err)
+        print(f"fedavg batched ({name}): C={GRID_CELLS} K={K} P={FEDAVG_P}, 1 launch, "
+              f"bitwise the {GRID_CELLS} single launches, max_abs_err {err:.3g} (atol 1e-5)"
+              + (f", NaN at the same {int(nan.sum())} positions" if nan.any() else ""),
+              flush=True)
+
+    def one(kw):
+        return lambda a, s, t, e, r, e0, u: sops.select_topk(
+            a, UtilityInputs(s, t, e, r, e0), u, **kw)
+
+    n_cases = 0
+    for B, S, K, eps, cases in ((6, MAIN_S, MAIN_K, 0.0, ("unavail30", "nan", "negzero")),
+                                (6, MAIN_S, MAIN_K, 0.1, ("unavail30", "ties")),
+                                (3, 8193, MAIN_K, 0.0, ("unavail30", "nan", "negzero")),
+                                (3, 8193, 257, 0.1, ("unavail30", "nan", "negzero"))):
+        kx = _explore_slots(eps, K)
+        kw = dict(k_exploit=K - kx, k_explore=kx, T_round=60.0, alpha=1.0, beta=1.0)
+        for case in cases:
+            ins = [select_inputs(S, case, 900 + 31 * b + S % 97, dev, K) for b in range(B)]
+            avail = torch.stack([i[0] for i in ins])
+            ui = UtilityInputs(*(torch.stack([i[1][j] for i in ins]) for j in range(5)))
+            rnd = torch.stack([i[2] for i in ins])
+            before = sops.launches
+            idx, live = vmap(one(kw))(avail, *ui, rnd)
+            torch.cuda.synchronize()
+            n = sops.launches - before
+            ridx, rlive = sref.select_topk_batched(avail, ui, rnd, **kw)
+            check(n == 1, f"rewafl_select batched B={B} S={S}: {n} launches for one call")
+            check(torch.equal(idx, ridx) and torch.equal(live, rlive),
+                  f"rewafl_select batched B={B} S={S} K={K} eps={eps} {case}: differs "
+                  "from the plain version")
+            for b in range(B):
+                si, sl = sops.select_topk(avail[b], UtilityInputs(*(x[b] for x in ui)),
+                                          rnd[b], **kw)
+                check(torch.equal(idx[b], si) and torch.equal(live[b], sl),
+                      f"rewafl_select batched B={B} S={S} {case}: selection {b} differs "
+                      "from its single launch")
+            n_cases += 1
+    errs["rewafl_select"] = 0.0
+    print(f"rewafl_select batched: {n_cases} cases (B 6 x S {MAIN_S} and B 3 x S 8,193), one "
+          "launch each, bitwise the plain version and the single launches", flush=True)
+
+    g = torch.Generator(device=dev).manual_seed(77)
+    losses = torch.rand(GRID_CELLS, MAIN_K, 32, generator=g, device=dev) * 5
+    sizes = torch.randint(1, 1000, (GRID_CELLS, MAIN_K), generator=g, device=dev,
+                          dtype=torch.int32)
+    before = uops.launches
+    got = vmap(uops.stat_utility)(losses, sizes)
+    torch.cuda.synchronize()
+    n = uops.launches - before
+    want = uref.stat_utility(losses.reshape(-1, 32), sizes.reshape(-1)).reshape(got.shape)
+    rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+    check(n == 1 and rel <= STAT_RTOL, f"stat_util batched: {n} launches, relative error {rel}")
+    errs["stat_util"] = (got - want).abs().max().item()
+    print(f"stat_util batched: {GRID_CELLS} cells x ({MAIN_K}, 32) as one "
+          f"({GRID_CELLS * MAIN_K}, 32) launch, max relative error {rel:.3g} "
+          f"(rtol {STAT_RTOL})", flush=True)
+    return errs
+
+
+def time_batched(dev) -> dict:
+    """Times of the batched calls at the grid's shapes (the op under
+    vmap, as the campaign calls it), beside the plain batched version, one
+    library call and the bound."""
+    from repro_torch.core import utility as util
+    from repro_torch.core.utility import UtilityInputs
+    from repro_torch.kernels.fedavg import ops as fops
+    from repro_torch.kernels.fedavg import ref as fref
+    from repro_torch.kernels.rewafl_select import ops as sops
+    from repro_torch.kernels.rewafl_select import ref as sref
+    from repro_torch.kernels.stat_util import ops as uops
+    from repro_torch.kernels.stat_util import ref as uref
+    vmap = torch.func.vmap
+    C, K, P = GRID_CELLS, FEDAVG_K, FEDAVG_P
+    g = torch.Generator(device=dev).manual_seed(98)
+    x = torch.randn(C, K, P, generator=g, device=dev)
+    w = torch.rand(C, K, generator=g, device=dev)
+    w = w / w.sum(1, keepdim=True)
+    b_ms, b_by = bound(n_bytes=(C * K * P + C * P + C * K) * 4, n_flops=2 * C * K * P)
+    agg = lambda: vmap(fops.weighted_aggregate)(x, w)   # noqa: E731
+    out = {"fedavg": dict(shape=f"C {C} x (K {K}, P {P}) f32", ms=time_ms(agg),
+                          eager_ms=time_eager_ms(agg),
+                          plain_ms=time_ms(lambda: fref.weighted_aggregate_batched(x, w)),
+                          library_ms=time_ms(lambda: torch.bmm(w[:, None, :], x)),
+                          bound_ms=b_ms, bound_by=b_by)}
+    B, S = len(BATCH_SEEDS), MAIN_S
+    ins = [select_inputs(S, "unavail30", 40 + b, dev) for b in range(B)]
+    avail = torch.stack([i[0] for i in ins])
+    ui = UtilityInputs(*(torch.stack([i[1][j] for i in ins]) for j in range(5)))
+    kw = dict(k_exploit=MAIN_K, k_explore=0, T_round=60.0, alpha=1.0, beta=1.0)
+
+    def sel():
+        return vmap(lambda a, s, t, e, r, e0: sops.select_topk(
+            a, UtilityInputs(s, t, e, r, e0), None, **kw))(avail, *ui)
+
+    def library():
+        u = util.rewafl_utility_from(ui, T_round=60.0, alpha=1.0, beta=1.0)
+        return torch.topk(torch.where(avail, u, sref.NEG), MAIN_K, dim=1)
+
+    b_ms, b_by = bound(n_bytes=B * (S * (5 * 4 + 1) + 2 * MAIN_K * 4), n_flops=12 * B * S)
+    out["rewafl_select"] = dict(
+        shape=f"B {B} x S {S}, K {MAIN_K}", ms=time_ms(sel), eager_ms=time_eager_ms(sel),
+        plain_ms=time_ms(lambda: sref.select_topk_batched(avail, ui, None, **kw)),
+        library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+    import math
+    losses = torch.rand(C, K, 32, generator=g, device=dev) * 5
+    sizes = torch.randint(1, 1000, (C, K), generator=g, device=dev).float()
+    b_ms, b_by = bound(n_bytes=4 * (C * K * 32 + 2 * C * K), n_flops=2 * C * K * 32 + 4 * C * K)
+    su = lambda: vmap(uops.stat_utility)(losses, sizes)   # noqa: E731
+    out["stat_util"] = dict(
+        shape=f"C {C} x ({K}, 32) f32", ms=time_ms(su), eager_ms=time_eager_ms(su),
+        plain_ms=time_ms(lambda: uref.stat_utility(losses.reshape(-1, 32), sizes.reshape(-1))),
+        library_ms=time_ms(lambda: torch.linalg.vector_norm(losses, dim=2)
+                           * (sizes / math.sqrt(32))),
+        bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def grid_specs(energy_hi: float):
+    """The grid's streaming specs, as the benchmark harness builds them
+    (DEFAULT_SPECS, an H ring and the health quantiles), with every
+    round's H and selection mask in rings (the cells' checks read them)."""
+    from repro_torch.core.metrics import DEFAULT_SPECS, MetricSpec, TelemetryCfg
+    from repro_torch.obs.health import HealthCfg
+    return TelemetryCfg(mode="streaming", specs=DEFAULT_SPECS + (
+        MetricSpec("H", "ring", every=1, cap=GRID_ROUNDS),
+        MetricSpec("selected", "ring", every=1, cap=GRID_ROUNDS),
+    ) + HealthCfg().quantile_specs(GRID_ROUNDS, energy_hi))
+
+
+def single_campaign(dev, method: str, seed: int):
+    """The campaign `run_fl("cnn@mnist", method, small=False,
+    n_clients=100, n_select=20, rounds=6, seed=seed)` runs, built as
+    run_fl builds it (fleet and data from `seed`, the model from `seed +
+    2`, the round noise from `seed + 1`) and run by its engine
+    (`run_rounds`, chunks of 3) with the per-round selection masks in the
+    history. Returns (history, steady ms/round of the second chunk)."""
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import FLConfig, make_eval_fn
+    from repro_torch.launch.engine import run_rounds
+    from repro_torch.launch.fl_run import build_task
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet
+    model = make_fl_model("cnn@mnist", small=False)
+    fleet = build_fleet(MAIN_S, seed=seed, device=dev, **FL_FLEET)
+    cx, cy, test = build_task("cnn@mnist", MAIN_S, 0.8, per_client=64, seed=seed, device=dev)
+    res = run_rounds(model, fleet, cx, cy, FLConfig(n_select=MAIN_K), METHODS[method],
+                     rounds=GRID_ROUNDS, seed=seed + 1, chunk_size=GRID_CHUNK,
+                     params=model.init(torch.Generator(device=dev).manual_seed(seed + 2)),
+                     eval_fn=make_eval_fn(model, test["x"], test["y"]), device=dev)
+    torch.cuda.synchronize()
+    return res.history, float(res.chunk_wall_s[-1]) / int(res.chunk_rounds[-1]) * 1e3
+
+
+CELL_COUNTS = ("n_participating", "n_failed", "n_dropped", "n_available")
+CELL_FLOATS = ("global_loss", "round_energy", "round_latency")
+
+
+def check_cell(name: str, sel, h, single) -> str:
+    """A campaign cell against its single run: round 0's mask bitwise;
+    until the first round where the masks part (none, if they never do),
+    the counters equal and the losses and costs within rtol 1e-3. Returns
+    a note of where the masks part."""
+    part = next((r for r in range(GRID_ROUNDS)
+                 if not np.array_equal(sel[r].astype(bool), single["selected"][r])), None)
+    check(part != 0, f"{name}: round 0's selection differs from the single run's")
+    upto = GRID_ROUNDS if part is None else part
+    for k in CELL_COUNTS:
+        check(np.array_equal(np.asarray(h[k][:upto], np.int64),
+                             np.asarray(single[k][:upto], np.int64)),
+              f"{name}: {k} {h[k][:upto]} vs the single run's {single[k][:upto]}")
+    for k in CELL_FLOATS:
+        check(np.allclose(h[k][:upto], single[k][:upto], rtol=1e-3, atol=1e-5),
+              f"{name}: {k} {h[k][:upto]} vs the single run's {single[k][:upto]}")
+    return "masks equal every round" if part is None else f"masks part at round {part}"
+
+
+def phase_grid(dev) -> dict:
+    """`run_campaign_grid` of the six methods x seeds {0, 1, 2} on cnn@mnist
+    at full width (S 100, K 20), 6 rounds in chunks of 3, per-seed fleets,
+    streaming telemetry (`grid_specs`): launch counts from 0, one fedavg
+    and one stat_util launch a round for all 18 cells, no rewafl_select
+    (the traced selection has no kernel); finite history; each cell
+    against its single campaign (`single_campaign`, `check_cell`); the
+    grid's steady ms/round (its second chunk) beside the sum of the 18
+    single campaigns' and its peak device memory."""
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import FLConfig, make_batch_eval_fn
+    from repro_torch.launch.engine import run_campaign_grid
+    from repro_torch.launch.fl_run import build_task_batch
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet_batch
+    model = make_fl_model("cnn@mnist", small=False)
+    fleet = build_fleet_batch(GRID_SEEDS, MAIN_S, device=dev, **FL_FLEET)
+    cx, cy, test = build_task_batch("cnn@mnist", GRID_SEEDS, MAIN_S, 0.8, per_client=64,
+                                    device=dev)
+    tcfg = grid_specs(float(fleet.init_energy.max()))
+    kw = dict(seeds=GRID_SEEDS, rounds=GRID_ROUNDS, chunk_size=GRID_CHUNK,
+              per_seed_fleets=True, telemetry=tcfg, device=dev,
+              eval_fn=make_batch_eval_fn(model, test["x"], test["y"], per_seed=True))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    grid = run_campaign_grid(model, fleet, cx, cy, FLConfig(n_select=MAIN_K),
+                             dict(METHODS), **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(counts == {"rewafl_select": 0, "fedavg": GRID_ROUNDS, "flash_attention": 0,
+                     "slstm": 0, "stat_util": GRID_ROUNDS},
+          f"grid: launches {counts} in {GRID_ROUNDS} rounds of {GRID_CELLS} cells")
+    M = len(METHODS)
+    steady = float(grid["rewafl"]["chunk_wall_s"][-1]) * M / GRID_CHUNK * 1e3
+    singles, notes = [], []
+    for m in METHODS:
+        h = grid[m]
+        for k, v in h.items():
+            check(bool(np.all(np.isfinite(np.asarray(v, np.float64)))),
+                  f"grid {m}: {k!r} has non-finite values")
+        check(h["global_loss"].shape == (len(GRID_SEEDS), GRID_ROUNDS)
+              and h["tel/selected/ring"].shape == (len(GRID_SEEDS), GRID_ROUNDS, MAIN_S),
+              f"grid {m}: shapes {h['global_loss'].shape}, {h['tel/selected/ring'].shape}")
+        for j, s in enumerate(GRID_SEEDS):
+            single, ms = single_campaign(dev, m, s)
+            singles.append(ms)
+            cell = {k: h[k][j] for k in CELL_COUNTS + CELL_FLOATS}
+            note = check_cell(f"grid cell {m} seed {s}", h["tel/selected/ring"][j], cell,
+                              single)
+            check(np.array_equal(h["tel/selected/count"][j], single["selected"].sum(0))
+                  or "part" in note, f"grid cell {m} seed {s}: selection counts differ")
+            notes.append(f"{m}/{s}: {note}")
+    total = sum(singles)
+    print(f"grid: {M} methods x {len(GRID_SEEDS)} seeds = {GRID_CELLS} cells, "
+          f"{GRID_ROUNDS} rounds in {wall:.2f} s, steady {steady:.1f} ms/round (second "
+          f"chunk, eval included) against {total:.1f} ms/round summed over the "
+          f"{GRID_CELLS} single campaigns ({total / steady:.2f}x); peak memory "
+          f"{peak:.2f} GiB; launches {counts}", flush=True)
+    print(f"grid cells against their single campaigns (round 0's masks bitwise, counters "
+          f"equal and losses within rtol 1e-3 until the masks part): {'; '.join(notes)}",
+          flush=True)
+    return dict(counts=counts, ms_per_round=steady, singles_ms_per_round=total,
+                singles=singles, peak_gib=peak, wall_s=wall)
+
+
+def phase_seed_batch(dev) -> dict:
+    """`run_campaign_batch` of rewafl over seeds 0-5 at full width: the
+    per-method path, whose selections run as one batched rewafl_select
+    launch a round (fedavg and stat_util once a round); each seed against
+    its single campaign; steady ms/round beside the sum of the six
+    single campaigns'."""
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import FLConfig
+    from repro_torch.launch.engine import run_campaign_batch
+    from repro_torch.launch.fl_run import build_task_batch
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet_batch
+    model = make_fl_model("cnn@mnist", small=False)
+    fleet = build_fleet_batch(BATCH_SEEDS, MAIN_S, device=dev, **FL_FLEET)
+    cx, cy, _ = build_task_batch("cnn@mnist", BATCH_SEEDS, MAIN_S, 0.8, per_client=64,
+                                 device=dev)
+    reset_launches()
+    t0 = time.time()
+    h = run_campaign_batch(model, fleet, cx, cy, FLConfig(n_select=MAIN_K),
+                           METHODS["rewafl"], seeds=BATCH_SEEDS, rounds=GRID_ROUNDS,
+                           chunk_size=GRID_CHUNK, per_seed_fleets=True,
+                           collect_per_device=True, device=dev)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_launches()
+    check(counts == {"rewafl_select": GRID_ROUNDS, "fedavg": GRID_ROUNDS,
+                     "flash_attention": 0, "slstm": 0, "stat_util": GRID_ROUNDS},
+          f"seed batch: launches {counts} in {GRID_ROUNDS} rounds of {len(BATCH_SEEDS)} seeds")
+    steady = float(h["chunk_wall_s"][-1]) / GRID_CHUNK * 1e3
+    singles, notes = [], []
+    for j, s in enumerate(BATCH_SEEDS):
+        single, ms = single_campaign(dev, "rewafl", s)
+        singles.append(ms)
+        cell = {k: h[k][j] for k in CELL_COUNTS + CELL_FLOATS}
+        notes.append(f"{s}: " + check_cell(f"seed batch seed {s}", h["selected"][j], cell,
+                                           single))
+    total = sum(singles)
+    print(f"seed batch: rewafl x {len(BATCH_SEEDS)} seeds, {GRID_ROUNDS} rounds in "
+          f"{wall:.2f} s, steady {steady:.1f} ms/round against {total:.1f} ms/round summed "
+          f"over the single campaigns ({total / steady:.2f}x); launches {counts} (one "
+          f"batched rewafl_select a round); seeds against their single campaigns: "
+          f"{'; '.join(notes)}", flush=True)
+    return dict(counts=counts, ms_per_round=steady, singles_ms_per_round=total,
+                singles=singles, wall_s=wall)
+
+
+# (name, scenario, methods) of the small card-against-CPU grids: a mixed
+# sync x async grid and a faulted, dynamic one
+SMALL_GRIDS = [("mixed sync x async", "static-paper", ("rewafl", "oort", "rewafl_async")),
+               ("flaky-fleet", "flaky-fleet", ("random", "autofl", "rewafl"))]
+
+
+def phase_small_grid_agreement(dev) -> None:
+    """Two small grids (S 10, K 4, seeds 0 and 1, 4 rounds in chunks of 2,
+    per-seed fleets) on the card against the same grids on the CPU: the
+    same fleets, data, initial params and environments, and the same
+    per-cell draws; the kernels' batched launches on one side, plain
+    versions on the other. Selections and every integer counter bitwise,
+    losses, costs and the virtual clock within rtol 1e-3."""
+    from repro_torch.common import tree_map, tree_stack
+    from repro_torch.core.methods import METHODS, async_variant
+    from repro_torch.core.round import draw_noise
+    from repro_torch.launch.engine import run_campaign_grid
+    from repro_torch.launch.fl_run import build_task_batch, quick_cfg
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet_batch
+    from repro_torch.sim.dynamics import get_scenario, init_env_state
+    S, K, n, R, seeds = 10, 4, 32, 4, (0, 1)
+    specs = dict(METHODS, rewafl_async=async_variant(METHODS["rewafl"], 2))
+    cfg = quick_cfg(K)
+    model = make_fl_model("cnn@mnist", small=True)
+    params = tree_stack([model.init(torch.Generator().manual_seed(s + 2)) for s in seeds])
+    for name, scenario, names in SMALL_GRIDS:
+        sc = get_scenario(scenario)
+        methods = {m: specs[m] for m in names}
+        gen = torch.Generator().manual_seed(5)
+        noise = [[draw_noise(gen, S, K, cfg.policy.H_max, cfg.batch_size, n, sc.dynamic,
+                             sc.faults.enabled) for _ in range(R)]
+                 for _ in range(len(methods) * len(seeds))]
+        env_u = torch.rand(len(seeds), 4, S, generator=gen)
+        out = {}
+        for d in ("cpu", dev):
+            fleet = build_fleet_batch(seeds, S, device=d, **FL_FLEET)
+            cx, cy, _ = build_task_batch("cnn@mnist", seeds, S, 0.8, per_client=n, n_test=8,
+                                         device=d)
+            env = tree_stack([init_env_state(tree_map(lambda x: x[b], fleet), sc,
+                                             env_u[b].to(d)) for b in range(len(seeds))])
+            out[str(d)] = run_campaign_grid(
+                model, fleet, cx, cy, cfg, methods, seeds=seeds, rounds=R, chunk_size=2,
+                per_seed_fleets=True, collect_per_device=True, scenario=sc,
+                noise_fn=lambda c, r, d=d: noise[c][r].to(d),
+                params=tree_map(lambda x: x.to(d), params), env=env, device=d)
+        for m in methods:
+            a, b = out["cpu"][m], out[str(dev)][m]
+            for k, v in a.items():
+                if k in ("chunk_wall_s", "compile_s"):
+                    continue
+                if np.asarray(v).dtype.kind in "biu":
+                    check(np.array_equal(v, b[k]), f"small grid {name} {m}: {k} differs "
+                          f"between the card and the CPU: {b[k]} vs {v}")
+                else:
+                    check(np.allclose(v, b[k], rtol=1e-3, atol=1e-5),
+                          f"small grid {name} {m}: {k} differs: {b[k]} vs {v}")
+        extra = {k: int(sum(out[str(dev)][m][k].sum() for m in methods))
+                 for k in ("n_aborted", "n_lost", "n_rejected", "n_landed")
+                 if k in out[str(dev)][names[0]]}
+        print(f"small grid {name}: {len(methods)} methods x {len(seeds)} seeds, {R} rounds "
+              f"on the card agree with the CPU (selections and counters bitwise, floats "
+              f"within rtol 1e-3)" + (f"; totals {json.dumps(extra)}" if extra else ""),
+              flush=True)
+
+
+def phase_loop(dev) -> dict:
+    """`run_fl("cnn@mnist", "rewafl", small=False, n_clients=100,
+    n_select=20, rounds=6, eval_every=3, engine="loop")`, the per-round
+    driver, launches counted from 0 (each kernel once a round), evaluated
+    at rounds 0, 3 and 5, beside the chunked run of the same call:
+    selections and counters equal, losses within rtol 1e-3."""
+    from repro_torch.launch.fl_run import run_fl
+    kw = dict(small=False, n_clients=MAIN_S, n_select=MAIN_K, rounds=GRID_ROUNDS,
+              eval_every=GRID_CHUNK, device=dev)
+    reset_launches()
+    t0 = time.time()
+    loop = run_fl("cnn@mnist", "rewafl", engine="loop", **kw)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = read_launches()
+    R = loop.rounds_run
+    check(R == GRID_ROUNDS and counts == {"rewafl_select": R, "fedavg": R,
+                                          "flash_attention": 0, "slstm": 0, "stat_util": R},
+          f"loop: {R} rounds, launches {counts}")
+    check(len(loop.acc_curve) == 3 and loop.chunk_wall_s is None,
+          f"loop: accuracy {loop.acc_curve}, chunk walls {loop.chunk_wall_s}")
+    scan = run_fl("cnn@mnist", "rewafl", **kw)
+    for k in ("sel_count", "H_trace", "n_participating", "n_failed", "n_dropped"):
+        check(np.array_equal(loop.history[k], scan.history[k]),
+              f"loop: {k} {loop.history[k]} vs the chunked run's {scan.history[k]}")
+    for k in ("global_loss", "round_energy", "round_latency"):
+        check(np.allclose(loop.history[k], scan.history[k], rtol=1e-3, atol=1e-5),
+              f"loop: {k} {loop.history[k]} vs the chunked run's {scan.history[k]}")
+    print(f"loop: rewafl {R} rounds in {wall:.2f} s, {wall / R * 1e3:.1f} ms/round "
+          f"(evals included), accuracy {[round(float(a), 4) for a in loop.acc_curve]} at rounds "
+          f"0, 3, 5; launches {counts}; selections and counters equal the chunked run's",
+          flush=True)
+    return counts
+
+
+def phase_profile_grid(dev) -> None:
+    """`--profile`: device time by kernel over one 3-round chunk of the
+    18-cell grid (no eval), and the device's busy share of the same chunk
+    run without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.methods import METHODS
+    from repro_torch.core.round import FLConfig
+    from repro_torch.launch.engine import run_campaign_grid
+    from repro_torch.launch.fl_run import build_task_batch
+    from repro_torch.models.fl_models import make_fl_model
+    from repro_torch.sim.devices import build_fleet_batch
+    model = make_fl_model("cnn@mnist", small=False)
+    fleet = build_fleet_batch(GRID_SEEDS, MAIN_S, device=dev, **FL_FLEET)
+    cx, cy, _ = build_task_batch("cnn@mnist", GRID_SEEDS, MAIN_S, 0.8, per_client=64,
+                                 device=dev)
+    tcfg = grid_specs(float(fleet.init_energy.max()))
+
+    def run():
+        g = run_campaign_grid(model, fleet, cx, cy, FLConfig(n_select=MAIN_K),
+                              dict(METHODS), seeds=GRID_SEEDS, rounds=GRID_CHUNK,
+                              chunk_size=GRID_CHUNK, per_seed_fleets=True, telemetry=tcfg,
+                              device=dev)
+        torch.cuda.synchronize()
+        return float(g["rewafl"]["chunk_wall_s"].sum()) * len(METHODS)
+
+    run()   # warm-up
+    plain_s = statistics.median(run() for _ in range(3))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_s = run()
+    ev, busy_s = _device_kernels(prof)
+    print(f"profile grid: {GRID_CELLS} cells, {GRID_CHUNK} rounds: {sum(e.count for e in ev)} "
+          f"kernels, device busy {busy_s * 1e3:.1f} ms; wall {plain_s * 1e3:.1f} ms without "
+          f"the profiler (median of 3), busy {100 * busy_s / plain_s:.1f}%; wall "
+          f"{prof_s * 1e3:.1f} ms under it, busy {100 * busy_s / prof_s:.1f}%", flush=True)
+    for e in ev[:15]:
+        print(f"profile grid: {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d} calls  "
+              f"{e.key[:90]}", flush=True)
+
+
 # ------------------------------------------------------- select_aggregate
 
 # (S, K, P): the paper CNN's parameters at the FL cell's fleet; a fleet
@@ -1737,6 +2249,7 @@ def main() -> None:
     flash_err = phase_flash(dev)
     slstm_err = phase_slstm(dev)
     stat_err = phase_stat_util(dev)
+    batched_err = phase_batched_kernels(dev)
     floor_ms = time_launch_floor()
     print(f"time launch floor: launch_floor_ms {floor_ms:.5f} (zero_() on one element)",
           flush=True)
@@ -1748,7 +2261,12 @@ def main() -> None:
     # the async land's aggregate: the whole (buffer_m + K, P) delta buffer
     times["fedavg"]["async_land"] = land = time_fedavg(dev, ASYNC_SLOTS)
     land.update(shape=f"K {ASYNC_SLOTS}, P {FEDAVG_P} f32", launch_floor_ms=floor_ms)
-    for k, v in list(times.items()) + [
+    for k, v in time_batched(dev).items():   # the campaigns' batched calls
+        v.update(launch_floor_ms=floor_ms, max_abs_err=batched_err[k])
+        times[k]["batched"] = v
+    for k, v in list(times.items()) + [(f"{k} batched ({v['batched']['shape']})",
+                                        v["batched"]) for k, v in times.items()
+                                       if "batched" in v] + [
             (f"fedavg K={ASYNC_SLOTS} (async land)", land),
             ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
             ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
@@ -1782,6 +2300,13 @@ def main() -> None:
     # async, each its own path with the counts read just after it
     chaos_counts.update(phase_streaming(dev))
     phase_small_streaming_agreement(dev)
+    # the (method x seed) grid, the per-method seed batch and the loop
+    # engine, each its own path with the counts read just after it
+    grid = phase_grid(dev)
+    batch = phase_seed_batch(dev)
+    chaos_counts.update({"grid": grid["counts"], "seed batch": batch["counts"],
+                         "loop": phase_loop(dev)})
+    phase_small_grid_agreement(dev)
     agg = phase_select_aggregate(dev)
     print(f"time select_aggregate: composed {agg['ms']:.5f} ms (issued from Python "
           f"{agg['eager_ms']:.5f} ms), select_mask + slots + gather + "
@@ -1793,6 +2318,7 @@ def main() -> None:
         phase_profile(dev)
         # ~88,000 kernels a round: 2 rounds keep the trace's processing short
         phase_profile(dev, "lstm@shakespeare", "rewafl", rounds=2)
+        phase_profile_grid(dev)
     tc_counts = {}
     for arch in SERVE_REPEATS:   # the serving paths: flash_attention, slstm
         cfg, params = serve_params(dev, arch)
@@ -1828,6 +2354,11 @@ def main() -> None:
                for k, (src, rep, err, chk) in meta.items()]
     agg["launch_floor_ms"] = floor_ms
     print(json.dumps({"select_aggregate": agg}), flush=True)
+    print(json.dumps({"campaign": {
+        "grid": {k: grid[k] for k in ("ms_per_round", "singles_ms_per_round", "peak_gib",
+                                      "singles")},
+        "seed_batch": {k: batch[k] for k in ("ms_per_round", "singles_ms_per_round",
+                                             "singles")}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -41,7 +41,34 @@ def scatter_drop(base: torch.Tensor, idx: torch.Tensor,
     """`base.at[idx].set(vals, mode="drop")` for idx in [0, len(base)]:
     index len(base) lands in an extra entry that is sliced off, so writes
     meant to be dropped need no host-side filtering. The other indices
-    must be distinct (a repeated index keeps an unspecified value)."""
+    must be distinct (a repeated index keeps an unspecified value). Out
+    of place, so it runs under `torch.func.vmap` with batched `idx` or
+    `vals` and an unbatched `base`."""
     ext = torch.cat([base, base[:1]])
-    ext[idx] = vals
-    return ext[:base.shape[0]]
+    return ext.index_put((idx,), vals)[:base.shape[0]]
+
+
+def tree_map(fn, tree, *rest):
+    """`fn` over the tensor leaves of nested NamedTuples, tuples, lists
+    and dicts (the round's states, noise and metrics), with the matching
+    leaves of `rest` as further arguments; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_stack(trees):
+    """Stack same-structured trees leaf by leaf along a new axis 0."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def batch_axes(tree):
+    """`torch.func.vmap` in_dims for a tree batched along axis 0 (None
+    leaves stay unbatched)."""
+    return tree_map(lambda x: 0, tree)

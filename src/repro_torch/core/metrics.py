@@ -255,13 +255,14 @@ def _update(spec: MetricSpec, st, v: torch.Tensor, round_idx: int):
         # every element is one sample; out-of-range clips into end bins
         x = v.to(torch.float32).reshape(-1)
         t = (x - spec.lo) * _bin_scale(spec)
-        idx = torch.nan_to_num(t, nan=0.0).clamp_(0, spec.bins - 1).to(torch.int32)
+        idx = torch.nan_to_num(t, nan=0.0).clamp(0, spec.bins - 1).to(torch.int32)
         return Hist(counts=st.counts.index_add(0, idx, torch.ones_like(x)))
     # ring: a host-side round index, so the off-stride rounds write nothing
     if round_idx % spec.every:
         return st
-    buf = st.buf.clone()
-    buf[(round_idx // spec.every) % spec.cap] = v
+    # out of place, so a cell-batched carry folds under vmap too
+    buf = torch.select_scatter(st.buf, v.to(st.buf.dtype), 0,
+                               (round_idx // spec.every) % spec.cap)
     return Ring(buf=buf, n=st.n + 1)
 
 

@@ -46,7 +46,7 @@ from repro_torch.core import resilience as res
 from repro_torch.core import selection as sel
 from repro_torch.core import utility as util
 from repro_torch.core.async_agg import AsyncCfg
-from repro_torch.core.methods import MethodSpec
+from repro_torch.core.methods import MethodParams, MethodSpec, selector_branches
 from repro_torch.core.resilience import ResilienceCfg
 from repro_torch.core.state import AsyncState, FleetState
 from repro_torch.kernels.fedavg import ops as fedavg_ops
@@ -179,19 +179,29 @@ def select_slots(selected: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Te
     return torch.where(slot_live, v, 0), slot_live
 
 
-def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
+def _build_round_body(model: FLModel, cfg: FLConfig,
+                      method: Optional[MethodSpec],
                       scenario: Optional[Scenario],
                       acfg: Optional[AsyncCfg] = None):
     """The round for any selector (`random`, `oort`, `autofl`, `rea`) and
     policy (`fixed`, `adah`, `rewa`):
-    round(params, state, astate, env, fleet, cx, cy, noise, round_idx)
+    round(mp, params, state, astate, env, fleet, cx, cy, noise, round_idx)
     -> (params', state', astate', env', metrics). `acfg` None is the sync
     FedAvg barrier (`astate` passes through as None); an `AsyncCfg` splits
-    the aggregation into dispatch and buffered lands."""
-    if method.selector not in ("random", "oort", "autofl", "rea"):
-        raise ValueError(f"unknown selector {method.selector!r}")
-    if method.policy not in ("rewa", "fixed", "adah"):
-        raise ValueError(f"unknown policy {method.policy!r}")
+    the aggregation into dispatch and buffered lands.
+
+    `method` a MethodSpec: Python dispatch on its selector and policy,
+    and `mp` is None. `method` None: the traced form, where `mp` is a
+    `MethodParams` — every policy's H and every selector's scores are
+    computed and `torch.where` picks the cell's (the reference's
+    `lax.switch`, which under vmap computes every branch too), and one
+    ε-greedy selection with the cell's effective ε ranks them. The
+    traced form is what `launch.engine` vmaps over a grid's cells."""
+    if method is not None:
+        if method.selector not in ("random", "oort", "autofl", "rea"):
+            raise ValueError(f"unknown selector {method.selector!r}")
+        if method.policy not in ("rewa", "fixed", "adah"):
+            raise ValueError(f"unknown policy {method.policy!r}")
     dyn = scenario is not None and scenario.dynamic
     # the chaos/resilience gates: with every one off, the round runs the
     # fault-free ops and takes no fault draws
@@ -204,17 +214,27 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
     K = cfg.n_select
     model_bits = float(cfg.uplink_bits or model.param_bits)
     pcfg = cfg.policy
-    if method.policy == "fixed":
+    if method is not None and method.policy == "fixed":
         # fixed-H baselines never exceed H0 — shrink the static loop bound
+        # (the traced form cannot: its bound covers every cell's method)
         cfg = dataclasses.replace(cfg, policy=dataclasses.replace(pcfg, H_max=pcfg.H0))
     n_lands = acfg.lands(K) if acfg is not None else 0
 
     @torch.no_grad()
-    def round_fn(params: Params, state: FleetState, astate: Optional[AsyncState],
-                 env: EnvState, fleet: DeviceFleet, cx: torch.Tensor,
-                 cy: torch.Tensor, noise: RoundNoise, round_idx: int):
+    def round_fn(mp: Optional[MethodParams], params: Params, state: FleetState,
+                 astate: Optional[AsyncState], env: EnvState, fleet: DeviceFleet,
+                 cx: torch.Tensor, cy: torch.Tensor, noise: RoundNoise,
+                 round_idx: int):
         S = fleet.n
         dev = cx.device
+        # method hyperparameters: constants (MethodSpec) or the cell's
+        # MethodParams leaves
+        if mp is None:
+            alpha, beta = cfg.alpha, cfg.beta
+            autofl_eta, autofl_ema = cfg.autofl_eta, cfg.autofl_ema
+        else:
+            alpha, beta = mp.alpha, mp.beta
+            autofl_eta, autofl_ema = mp.autofl_eta, mp.autofl_ema
         if dyn:
             env, state = step_env(scenario, fleet, env, state, round_idx,
                                   noise.env_u, model_bits)
@@ -232,11 +252,17 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
             g_loss = state.g_loss
 
         # --- candidate H per policy (Algorithm 1 line 8) -------------------
-        if method.policy == "rewa":   # Eqn (3) growth gated by Eqn (4)
+        def h_rewa():   # Eqn (3) growth gated by Eqn (4)
             eps = pol.stopping_eps(state.last_local_loss, g_loss,
                                    state.last_energy, fleet.e0_reserve,
                                    state.last_ecp)
-            H_cand = pol.h_rewa(state.H, rates, eps, pcfg)
+            return pol.h_rewa(state.H, rates, eps, pcfg)
+
+        if mp is not None:   # branch order: methods.POLICY_IDS
+            H_cand = torch.where(mp.policy_id == 0, state.H, torch.where(
+                mp.policy_id == 1, pol.h_adah(round_idx, S, pcfg, dev), h_rewa()))
+        elif method.policy == "rewa":
+            H_cand = h_rewa()
         elif method.policy == "adah":
             H_cand = pol.h_adah(round_idx, S, pcfg, dev)
         else:
@@ -248,17 +274,39 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         # --- utilities + selection (lines 13–16) ---------------------------
         # churn gates selection like dropout, but is transient
         available = (~state.dropped & env.online) if dyn else ~state.dropped
-        u, eps = noise.explore_u, method.exploration
-        if method.selector == "random":
+        u = noise.explore_u
+        if mp is not None:
+            # one ε-greedy selection for every selector: the branch only
+            # picks the scores, and mp.exploration is the effective ε
+            # (random 1: every slot by the uniform draw; rea 0: pure
+            # ranking); masks are bitwise the static branches'
+            stat_tu = sel.temporal_uncertainty(state.last_stat, round_idx,
+                                               state.last_round)
+            scores = selector_branches({
+                "random": torch.zeros_like(state.last_stat),
+                "oort": util.oort_utility(stat_tu, costs.t_total,
+                                          T_round=cfg.T_round, alpha=alpha),
+                "autofl": state.q_value,
+                "rea": util.rewafl_utility(
+                    state.last_stat, costs.t_total, costs.e_total,
+                    state.residual_energy, fleet.e0_reserve,
+                    T_round=cfg.T_round, alpha=alpha, beta=beta)})
+            sid = mp.selector_id
+            scores = torch.where(sid == 0, scores[0], torch.where(
+                sid == 1, scores[1], torch.where(sid == 2, scores[2], scores[3])))
+            selected = rsel_ops.select_traced(u, scores, K, available,
+                                              mp.exploration)
+        elif method.selector == "random":
             selected = sel.random_select(u, K, available)
         elif method.selector == "oort":
             stat_tu = sel.temporal_uncertainty(state.last_stat, round_idx,
                                                state.last_round)
             scores = util.oort_utility(stat_tu, costs.t_total,
-                                       T_round=cfg.T_round, alpha=cfg.alpha)
-            selected = rsel_ops.select_mask(u, K, available, eps, scores=scores)
+                                       T_round=cfg.T_round, alpha=alpha)
+            selected = rsel_ops.select_mask(u, K, available, method.exploration,
+                                            scores=scores)
         elif method.selector == "autofl":
-            selected = rsel_ops.select_mask(u, K, available, eps,
+            selected = rsel_ops.select_mask(u, K, available, method.exploration,
                                             scores=state.q_value)
         else:   # "rea": Eqn (2), fused into the selection kernel; ε = 0
             ui = util.UtilityInputs(state.last_stat, costs.t_total,
@@ -266,7 +314,7 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
                                     fleet.e0_reserve)
             selected = rsel_ops.select_mask(u, K, available, 0.0, ui=ui,
                                             T_round=cfg.T_round,
-                                            alpha=cfg.alpha, beta=cfg.beta)
+                                            alpha=alpha, beta=beta)
 
         # --- feasibility: selected devices without enough battery fail ----
         feasible = costs.e_total < (state.residual_energy - fleet.e0_reserve)
@@ -278,17 +326,19 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         # `delivered` the participants whose update reaches the server
         t_round = costs.t_total
         if faults_on:
+            # the rates: the scenario's constants, or the cell's tensors
+            fp = fcfg if mp is None else mp.faults
             dr = flt.fault_draws(noise.fault_u)
-            straggler = participating & (dr.u_straggler < fcfg.straggler_rate)
-            t_round = torch.where(straggler, costs.t_total * fcfg.straggler_mult,
+            straggler = participating & (dr.u_straggler < fp.straggler_rate)
+            t_round = torch.where(straggler, costs.t_total * fp.straggler_mult,
                                   costs.t_total)
             # mid-round compute abort: h_frac of the local steps ran
             # (their energy is spent below); the update is lost
-            aborted = participating & (dr.u_abort < fcfg.abort_rate)
+            aborted = participating & (dr.u_abort < fp.abort_rate)
             # upload loss: only a bad channel loses updates, after the
             # upload's energy was spent (inert on a static scenario)
             lost = (participating & ~aborted & ~env.channel_good
-                    & (dr.u_loss < fcfg.loss_rate))
+                    & (dr.u_loss < fp.loss_rate))
             delivered = participating & ~aborted & ~lost
         else:
             delivered = participating
@@ -310,7 +360,7 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
 
         # --- update corruption + robust screen (core.resilience) -----------
         if faults_on:
-            corrupt = delivered & (dr.u_corrupt < fcfg.corrupt_rate)
+            corrupt = delivered & (dr.u_corrupt < fp.corrupt_rate)
             client = flt.corrupt_cohort(client, global_flat,
                                         corrupt[sel_idx] & deliver_k,
                                         dr.u_cmode[sel_idx],
@@ -337,7 +387,10 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
                 delays = t_round[sel_idx]
             if acfg.delay_jitter > 0.0:
                 delays = delays * torch.exp(acfg.delay_jitter * noise.delay_eps)
-            m_eff = acfg.buffer_m
+            if mp is None:
+                m_eff = acfg.buffer_m
+            else:   # 0 is the sync sentinel: the full K-cohort lands
+                m_eff = torch.where(mp.buffer_m > 0, mp.buffer_m, K)
             pend_before = astate.slot_live.sum(dtype=torch.int32)
             # under chaos or the screen only the updates that arrived and
             # passed are pushed; fault-free, failed devices hold weight-0
@@ -416,9 +469,9 @@ def _build_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
         # AutoFL bandit value: EMA of (global-loss drop proxy)/energy
         loss_drop_k = (g_loss[sel_idx] - l_loss_k).clamp_min(0.0)
         reward_k = util.autofl_reward(loss_drop_k, costs.e_total[sel_idx],
-                                      eta=cfg.autofl_eta)
-        q_sel = (cfg.autofl_ema * state.q_value[sel_idx]
-                 + (1 - cfg.autofl_ema) * reward_k * 1e3)
+                                      eta=autofl_eta)
+        q_sel = (autofl_ema * state.q_value[sel_idx]
+                 + (1 - autofl_ema) * reward_k * 1e3)
         new_q = scatter(state.q_value, q_sel, succ_k)
 
         # dropout: can no longer afford even H=1 + uplink at its mean rate
@@ -507,8 +560,8 @@ def make_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
     def round_fn(params: Params, state: FleetState, env: EnvState,
                  fleet: DeviceFleet, cx: torch.Tensor, cy: torch.Tensor,
                  noise: RoundNoise, round_idx: int):
-        p, s, _, e, m = body(params, state, None, env, fleet, cx, cy, noise,
-                             round_idx)
+        p, s, _, e, m = body(None, params, state, None, env, fleet, cx, cy,
+                             noise, round_idx)
         return p, s, e, m
 
     return round_fn
@@ -526,12 +579,73 @@ def make_async_round_body(model: FLModel, cfg: FLConfig, method: MethodSpec,
     the dispatched deltas land after their delay and aggregate
     staleness-weighted once `async_cfg.buffer_m` have arrived. With the
     jitter on, `noise.delay_eps` carries its (K,) normal draw."""
-    return _build_round_body(model, cfg, method, scenario, async_cfg)
+    body = _build_round_body(model, cfg, method, scenario, async_cfg)
+
+    def round_fn(params: Params, state: FleetState, astate: AsyncState,
+                 env: EnvState, fleet: DeviceFleet, cx: torch.Tensor,
+                 cy: torch.Tensor, noise: RoundNoise, round_idx: int):
+        return body(None, params, state, astate, env, fleet, cx, cy, noise,
+                    round_idx)
+
+    return round_fn
+
+
+def make_round_body_mp(model: FLModel, cfg: FLConfig,
+                       scenario: Optional[Scenario] = None):
+    """The traced-method sync round:
+    round(mp, params, state, env, fleet, cx, cy, noise, round_idx)
+    -> (params', state', env', metrics), with `mp` a
+    `methods.MethodParams`. Its selection masks are bitwise those of
+    `make_round_body(model, cfg, spec, scenario)` at equal
+    hyperparameters; its local-SGD loop runs to `cfg.policy.H_max` for
+    every method (fixed-H cells take masked no-op steps past H0), so its
+    `noise.batch_idx` is (K, H_max, B)."""
+    body = _build_round_body(model, cfg, None, scenario)
+
+    def round_fn(mp: MethodParams, params: Params, state: FleetState,
+                 env: EnvState, fleet: DeviceFleet, cx: torch.Tensor,
+                 cy: torch.Tensor, noise: RoundNoise, round_idx: int):
+        p, s, _, e, m = body(mp, params, state, None, env, fleet, cx, cy,
+                             noise, round_idx)
+        return p, s, e, m
+
+    return round_fn
+
+
+def make_async_round_body_mp(model: FLModel, cfg: FLConfig,
+                             scenario: Optional[Scenario] = None,
+                             async_cfg: AsyncCfg = AsyncCfg()):
+    """The traced-method async round:
+    round(mp, params, state, astate, env, fleet, cx, cy, noise, round_idx).
+    `mp.buffer_m` is each cell's trigger (0, the sync sentinel, lands the
+    full K-cohort each round, and with no jitter such a cell is the sync
+    cell's round, bitwise, through the land's sync fast path); the buffer
+    capacity and land count come from `async_cfg` and must cover every
+    cell (`launch.engine.run_campaign_grid` derives them)."""
+    return _build_round_body(model, cfg, None, scenario, async_cfg)
 
 
 def make_eval_fn(model: FLModel, test_x: torch.Tensor, test_y: torch.Tensor):
     @torch.no_grad()
     def evaluate(params: Params) -> torch.Tensor:
         return model.accuracy(params, {"x": test_x, "y": test_y})
+
+    return evaluate
+
+
+def make_batch_eval_fn(model: FLModel, test_x: torch.Tensor,
+                       test_y: torch.Tensor, per_seed: bool = False):
+    """evaluate(params_batch) -> (B,) accuracies of a campaign batch's
+    (B, ...)-leaf params, for `launch.engine.run_campaign_batch` /
+    `run_campaign_grid`. `per_seed`: test_x / test_y carry a leading
+    seed axis too (`launch.fl_run.build_task_batch`), and params row b is
+    scored on test set b."""
+    ax = 0 if per_seed else None
+    acc = vmap(lambda p, x, y: model.accuracy(p, {"x": x, "y": y}),
+               in_dims=(0, ax, ax))
+
+    @torch.no_grad()
+    def evaluate(params: Params) -> torch.Tensor:
+        return acc(params, test_x, test_y)
 
     return evaluate

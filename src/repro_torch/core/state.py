@@ -7,6 +7,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
+from repro_torch.common import tree_map
 from repro_torch.sim.devices import DeviceFleet
 
 
@@ -63,6 +64,14 @@ class AsyncState(NamedTuple):
     n_expired: torch.Tensor         # i32 () — updates dropped by the slot TTL
     update_staleness: torch.Tensor  # i32 (S,) — staleness of each device's
                                     # most recently landed update
+
+
+def replicate_state(state, n: int):
+    """Stack `n` copies of a state tree (FleetState, EnvState,
+    AsyncState, TelemetryCarry or MethodParams) into (n, ...) leaves for
+    a campaign batch's vmap: fresh init states are deterministic, so the
+    cells share them by copy."""
+    return tree_map(lambda x: x.unsqueeze(0).expand((n,) + x.shape).clone(), state)
 
 
 def init_async_state(params_flat: torch.Tensor, n_devices: int,

@@ -26,9 +26,13 @@ def statistical_utility(data_size: torch.Tensor,
     return data_size.float() * torch.sqrt(loss_sq_mean.clamp_min(0.0))
 
 
-def _pow(base: torch.Tensor, exponent: float) -> torch.Tensor:
+def _pow(base: torch.Tensor, exponent) -> torch.Tensor:
     """base**exponent, exactly `base` at exponent 1 (the reference's
-    exponent-1 guard)."""
+    exponent-1 guard). `exponent` is a Python float or a 0-d tensor
+    (`MethodParams.alpha` / `beta`), which the guard then picks by
+    `torch.where`."""
+    if isinstance(exponent, torch.Tensor):
+        return torch.where(exponent == 1, base, base ** exponent)
     return base if exponent == 1 else base ** exponent
 
 

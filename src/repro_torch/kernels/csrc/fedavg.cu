@@ -18,6 +18,12 @@
 // one vector load (16 B f32, 8 B bf16) per row and one vector store; any
 // other layout, and the ragged tail of P, takes scalar loads. No shared
 // memory: every element is used once, so there is nothing to reuse.
+//
+// Batched: C independent aggregations (a campaign grid's cells; C = 1
+// for one) in one launch, out[c, p] = sum_k w[c, k] * x[c, k, p], with
+// cell c's rows at x + c * cld and a second grid dimension over the
+// cells. Each cell's sum runs in the same order as a launch of that cell
+// alone, so the results are bitwise equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,12 +64,15 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[VEC]) {
 
 template <typename T, bool VECTORISED>
 __global__ void __launch_bounds__(THREADS)
-fedavg_kernel(const T* __restrict__ x, long long ld,
+fedavg_kernel(const T* __restrict__ x, long long ld, long long cld,
               const float* __restrict__ w, T* __restrict__ out, int K,
               long long P) {
   const long long p0 =
       ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
   if (p0 >= P) return;
+  x += (long long)blockIdx.y * cld;   // this cell's rows, weights, output
+  w += (long long)blockIdx.y * K;
+  out += (long long)blockIdx.y * P;
   float acc[VEC] = {0.f, 0.f, 0.f, 0.f};
   if (VECTORISED && p0 + VEC <= P) {
     for (int k = 0; k < K; ++k) {
@@ -90,36 +99,45 @@ fedavg_kernel(const T* __restrict__ x, long long ld,
 }
 
 template <typename T>
-int launch(const T* x, long long ld, const float* w, T* out, int K,
-           long long P, void* stream) {
-  if (K < 0 || P < 0 || (K > 1 && ld < P)) return (int)cudaErrorInvalidValue;
-  if (P == 0) return (int)cudaSuccess;
+int launch(const T* x, long long ld, long long cld, const float* w, T* out,
+           int C, int K, long long P, void* stream) {
+  if (C < 0 || C > 65535 || K < 0 || P < 0 || (K > 1 && ld < P) ||
+      (C > 1 && cld < (long long)(K > 0 ? K - 1 : 0) * ld + P))
+    return (int)cudaErrorInvalidValue;
+  if (P == 0 || C == 0) return (int)cudaSuccess;
   const long long threads = (P + VEC - 1) / VEC;
-  const unsigned int blocks = (unsigned int)((threads + THREADS - 1) / THREADS);
+  const dim3 blocks((unsigned int)((threads + THREADS - 1) / THREADS), C);
   const uintptr_t align = VEC * sizeof(T);
+  // every row, and every cell's output, must start aligned
   const bool vec = ld % VEC == 0 && (uintptr_t)x % align == 0 &&
-                   (uintptr_t)out % align == 0;
+                   (uintptr_t)out % align == 0 &&
+                   (C == 1 || (cld % VEC == 0 && P % VEC == 0));
   cudaStream_t st = (cudaStream_t)stream;
   if (vec)
-    fedavg_kernel<T, true><<<blocks, THREADS, 0, st>>>(x, ld, w, out, K, P);
+    fedavg_kernel<T, true><<<blocks, THREADS, 0, st>>>(x, ld, cld, w, out, K, P);
   else
-    fedavg_kernel<T, false><<<blocks, THREADS, 0, st>>>(x, ld, w, out, K, P);
+    fedavg_kernel<T, false><<<blocks, THREADS, 0, st>>>(x, ld, cld, w, out, K,
+                                                        P);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x: K rows of P elements, row stride ld (elements); w: (K,) f32; out: (P,).
-// Return a cudaError_t.
-extern "C" int fedavg_f32(const void* x, long long ld, const void* w, void* out,
-                          int K, long long P, void* stream) {
-  return launch(static_cast<const float*>(x), ld, static_cast<const float*>(w),
-                static_cast<float*>(out), K, P, stream);
+// C cells, cell c's K rows of P elements at x + c * cld, row stride ld
+// (elements); w (C, K) f32 contiguous; out (C, P) contiguous; C <= 65535.
+// Returns a cudaError_t.
+extern "C" int fedavg_f32(const void* x, long long ld, long long cld,
+                          const void* w, void* out, int C, int K, long long P,
+                          void* stream) {
+  return launch(static_cast<const float*>(x), ld, cld,
+                static_cast<const float*>(w), static_cast<float*>(out), C, K,
+                P, stream);
 }
 
-extern "C" int fedavg_bf16(const void* x, long long ld, const void* w,
-                           void* out, int K, long long P, void* stream) {
-  return launch(static_cast<const __nv_bfloat16*>(x), ld,
+extern "C" int fedavg_bf16(const void* x, long long ld, long long cld,
+                           const void* w, void* out, int C, int K, long long P,
+                           void* stream) {
+  return launch(static_cast<const __nv_bfloat16*>(x), ld, cld,
                 static_cast<const float*>(w), static_cast<__nv_bfloat16*>(out),
-                K, P, stream);
+                C, K, P, stream);
 }

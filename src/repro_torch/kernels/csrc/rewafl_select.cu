@@ -57,6 +57,13 @@
 //
 // The utility (`utility`, `pow_s`) follows the plain version op for op,
 // so its values, and the selection, are bitwise the plain version's.
+//
+// Batched: B independent selections over (B, S) leaves (a seed batch's
+// fleets; B = 1 for one) in the same one or two launches, one block (or
+// one set of tile blocks and one merging block) a selection: selection b
+// reads its leaves at offset b * S, writes its K slots at b * K and, when
+// tiled, uses its own scratch at b * scratch. Each is computed exactly as
+// a launch of that selection alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -143,6 +150,19 @@ struct Leaves {
   const float* rnd;   // read only when exploring
   float T_round, alpha, beta;
 };
+
+// Selection b's leaves, at offset b * S of (B, S) ones.
+__device__ __forceinline__ Leaves batch_leaves(Leaves L, int b, int S) {
+  const size_t o = (size_t)b * S;
+  L.stat += o;
+  L.t += o;
+  L.e += o;
+  L.residual += o;
+  L.e0 += o;
+  L.avail += o;
+  L.rnd += o;
+  return L;
+}
 
 // Device g's key by utility (NEG where unavailable), as load_keys makes it.
 __device__ __forceinline__ u64 exploit_key(const Leaves& L, int g) {
@@ -442,6 +462,9 @@ select_one(Leaves L, int S, int kx, int kr, int* __restrict__ out_idx,
            int* __restrict__ out_live) {
   extern __shared__ u64 dyn[];
   __shared__ Work w;
+  L = batch_leaves(L, blockIdx.x, S);   // one block a selection
+  out_idx += (size_t)blockIdx.x * (kx + kr);
+  out_live += (size_t)blockIdx.x * (kx + kr);
   u64* ux = dyn;
   u64* ur = ux + (kx > 0 ? S : 0);
   u64* top = ur + (kr > 0 ? S : 0);
@@ -462,12 +485,16 @@ select_one(Leaves L, int S, int kx, int kr, int* __restrict__ out_idx,
 
 // Stage 1: tile b's min(k, n) smallest keys of each kind, in no order, to
 // cand_x + b * min(kx, TILE) and cand_r + b * min(kc, TILE). Dynamic
-// shared memory: ux[TILE] (when kx > 0), ur[TILE] (when kc > 0).
+// shared memory: ux[TILE] (when kx > 0), ur[TILE] (when kc > 0). The
+// selection is blockIdx.y; its candidates start `stride` keys apart.
 __global__ void __launch_bounds__(MAX_THREADS)
 select_tiles(Leaves L, int S, int kx, int kc, u64* __restrict__ cand_x,
-             u64* __restrict__ cand_r) {
+             u64* __restrict__ cand_r, size_t stride) {
   extern __shared__ u64 dyn[];
   __shared__ Work w;
+  L = batch_leaves(L, blockIdx.y, S);
+  cand_x += blockIdx.y * stride;
+  cand_r += blockIdx.y * stride;
   u64* ux = dyn;
   u64* ur = ux + (kx > 0 ? TILE : 0);
   const int base = blockIdx.x * TILE;
@@ -485,13 +512,20 @@ select_tiles(Leaves L, int S, int kx, int kc, u64* __restrict__ cand_x,
 // Stage 2: one block selects over the tiles' candidates, ranks them and
 // resolves the slots. top is top_g when given, else the start of dynamic
 // shared memory; the candidates are copied after it when keys_in_smem.
+// One block a selection (blockIdx.x), its scratch `stride` keys apart.
 __global__ void __launch_bounds__(MAX_THREADS)
-select_merge(Leaves L, const u64* __restrict__ cand_x, int n_cx,
+select_merge(Leaves L, int S, const u64* __restrict__ cand_x, int n_cx,
              const u64* __restrict__ cand_r, int n_cr, int kx, int kr,
-             int keys_in_smem, u64* top_g,
+             int keys_in_smem, u64* top_g, size_t stride,
              int* __restrict__ out_idx, int* __restrict__ out_live) {
   extern __shared__ u64 dyn[];
   __shared__ Work w;
+  L = batch_leaves(L, blockIdx.x, S);
+  cand_x += blockIdx.x * stride;
+  cand_r += blockIdx.x * stride;
+  if (top_g != nullptr) top_g += blockIdx.x * stride;
+  out_idx += (size_t)blockIdx.x * (kx + kr);
+  out_live += (size_t)blockIdx.x * (kx + kr);
   const int kc = kr > 0 ? kx + kr : 0;
   u64* top = top_g != nullptr ? top_g : dyn;
   u64* buf = top_g != nullptr ? dyn : dyn + pow2_ceil(kc > 0 ? kc : kx);
@@ -575,15 +609,15 @@ extern "C" long long rewafl_select_scratch(int S, int kx, int kr) {
   return (long long)make_plan(S, kx, kr).scratch;
 }
 
-// rnd is read only when kr > 0. scratch: at least
-// rewafl_select_scratch(S, kx, kr) keys. Returns a cudaError_t.
-extern "C" int rewafl_select(const float* stat, const float* t, const float* e,
-                             const float* residual, const float* e0,
-                             const unsigned char* avail, const float* rnd,
-                             int S, int kx, int kr, float T_round, float alpha,
-                             float beta, unsigned long long* scratch, int* out_idx,
-                             int* out_live, void* stream) {
-  if (!valid(S, kx, kr)) return (int)cudaErrorInvalidValue;
+// B selections over (B, S) leaves, contiguous (B = 1 for one); rnd is
+// read only when kr > 0. scratch: at least B * rewafl_select_scratch(S,
+// kx, kr) keys. out_idx, out_live: (B, kx + kr). Returns a cudaError_t.
+extern "C" int rewafl_select(
+    const float* stat, const float* t, const float* e, const float* residual,
+    const float* e0, const unsigned char* avail, const float* rnd, int B,
+    int S, int kx, int kr, float T_round, float alpha, float beta,
+    unsigned long long* scratch, int* out_idx, int* out_live, void* stream) {
+  if (!valid(S, kx, kr) || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   static bool smem_set[64] = {};   // the opt-in above 48 KB, once a device
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -602,7 +636,7 @@ extern "C" int rewafl_select(const float* stat, const float* t, const float* e,
   const Plan p = make_plan(S, kx, kr);
   cudaStream_t st = (cudaStream_t)stream;
   if (p.one_block) {
-    select_one<<<1, p.threads, p.smem, st>>>(L, S, kx, kr, out_idx, out_live);
+    select_one<<<B, p.threads, p.smem, st>>>(L, S, kx, kr, out_idx, out_live);
     return (int)cudaGetLastError();
   }
   const int kc = kr > 0 ? kx + kr : 0;
@@ -610,12 +644,12 @@ extern "C" int rewafl_select(const float* stat, const float* t, const float* e,
   u64* cand_r = cand_x + p.n_cx;
   u64* top_g = p.top_in_smem ? nullptr : cand_r + p.n_cr;
   const size_t tile_smem = 8 * (size_t)TILE * ((kx > 0) + (kc > 0));
-  select_tiles<<<p.n_tiles, MAX_THREADS, tile_smem, st>>>(L, S, kx, kc, cand_x,
-                                                          cand_r);
+  select_tiles<<<dim3(p.n_tiles, B), MAX_THREADS, tile_smem, st>>>(
+      L, S, kx, kc, cand_x, cand_r, p.scratch);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  select_merge<<<1, p.threads, p.smem, st>>>(
-      L, cand_x, p.n_cx, cand_r, p.n_cr, kx, kr, p.keys_in_smem ? 1 : 0, top_g,
-      out_idx, out_live);
+  select_merge<<<B, p.threads, p.smem, st>>>(
+      L, S, cand_x, p.n_cx, cand_r, p.n_cr, kx, kr, p.keys_in_smem ? 1 : 0,
+      top_g, p.scratch, out_idx, out_live);
   return (int)cudaGetLastError();
 }

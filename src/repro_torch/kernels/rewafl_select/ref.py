@@ -55,12 +55,26 @@ def select_topk(available: torch.Tensor, ui: util.UtilityInputs,
     return (torch.cat(idx).to(torch.int32), torch.cat(live).to(torch.int32))
 
 
+def select_topk_batched(available: torch.Tensor, ui: util.UtilityInputs,
+                        rnd: Optional[torch.Tensor], *, k_exploit: int,
+                        k_explore: int, T_round: float, alpha: float,
+                        beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`select_topk` of each of B selections over (B, S) leaves:
+    ((B, K) idx, (B, K) live), bitwise the single selections'."""
+    out = [select_topk(available[b], util.UtilityInputs(*(x[b] for x in ui)),
+                       None if rnd is None else rnd[b], k_exploit=k_exploit,
+                       k_explore=k_explore, T_round=T_round, alpha=alpha,
+                       beta=beta) for b in range(available.shape[0])]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
 def mask_from_slots(idx: torch.Tensor, live: torch.Tensor, S: int) -> torch.Tensor:
     """(S,) bool mask of the live slots. Dead slots scatter to the extra
-    index S, which is sliced off. `index_fill_` takes its value as a
-    kernel argument, so the mask can be built inside a CUDA graph."""
+    index S, which is sliced off. `index_fill` takes its value as a
+    kernel argument, so the mask can be built inside a CUDA graph; it is
+    out of place, so the mask can be built under `torch.func.vmap` too."""
     m = torch.zeros(S + 1, dtype=torch.bool, device=idx.device)
-    return m.index_fill_(0, torch.where(live > 0, idx, S).long(), True)[:S]
+    return m.index_fill(0, torch.where(live > 0, idx, S).long(), True)[:S]
 
 
 def select_aggregate(u: Optional[torch.Tensor], k: int, available: torch.Tensor,

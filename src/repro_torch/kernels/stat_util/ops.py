@@ -1,9 +1,13 @@
 """Dispatch for the statistical utility.
 
-`stat_utility` is the wrapper: losses on the CPU run the plain version
-(`ref.stat_utility`); losses on a CUDA device launch the hand-written
-kernel (`csrc/stat_util.cu`) or raise — there is no fallback. `launches`
-counts kernel launches.
+`stat_utility` is the wrapper, a `torch.library` custom op: losses on
+the CPU run the plain version (`ref.stat_utility`); losses on a CUDA
+device launch the hand-written kernel (`csrc/stat_util.cu`) or raise —
+there is no fallback. `launches` counts kernel launches.
+
+The kernel reduces each row on its own, so under `torch.func.vmap` (a
+campaign grid's cell axis) the op's vmap rule folds the C cells' (K, n)
+rows into one (C·K, n) block: one launch for all cells.
 """
 from __future__ import annotations
 
@@ -57,11 +61,39 @@ def _launch(losses: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("repro_torch::stat_util", mutates_args=(),
+                         device_types="cpu")
+def _stat_util(losses: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    return ref.stat_utility(losses, sizes)
+
+
+@_stat_util.register_kernel("cuda")
+def _(losses, sizes):
+    return _launch(losses, sizes)
+
+
+@_stat_util.register_fake
+def _(losses, sizes):
+    return losses.new_empty(losses.shape[:1], dtype=torch.float32)
+
+
+def _stat_util_vmap(info, in_dims, losses, sizes):
+    n = info.batch_size
+    lo = (losses.unsqueeze(0).expand(n, *losses.shape) if in_dims[0] is None
+          else losses.movedim(in_dims[0], 0))
+    sz = (sizes.unsqueeze(0).expand(n, *sizes.shape) if in_dims[1] is None
+          else sizes.movedim(in_dims[1], 0))
+    rows = lo.shape[1]
+    out = _stat_util(lo.reshape((n * rows,) + lo.shape[2:]), sz.reshape(n * rows))
+    return out.reshape(n, rows), 0
+
+
+_stat_util.register_vmap(_stat_util_vmap)
+
+
 def stat_utility(losses: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
     """losses (S, n) f32 or bf16, sizes (S,) -> (S,) f32
     |B_i|·sqrt(max(mean_k loss², 0))."""
-    if losses.device.type == "cpu":
-        return ref.stat_utility(losses, sizes)
-    if losses.device.type != "cuda":
+    if losses.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stat_util: unsupported device {losses.device}")
-    return _launch(losses, sizes)
+    return _stat_util(losses, sizes)

@@ -46,7 +46,7 @@ from repro_torch.core.state import AsyncState, FleetState
 from repro_torch.data.partition import client_datasets
 from repro_torch.data.synthetic import (make_char_dataset, make_har_dataset,
                                         make_image_dataset)
-from repro_torch.launch.engine import run_rounds
+from repro_torch.launch.engine import run_loop, run_rounds
 from repro_torch.models.fl_models import make_fl_model
 from repro_torch.obs.health import HealthCfg, HealthReport, format_health_table
 from repro_torch.obs.log import configure_logging, get_logger
@@ -120,6 +120,18 @@ def build_task(task: str, n_clients: int, lam: float, *, per_client: int = 128,
             {"x": t(tx), "y": t(ty, torch.int64)})
 
 
+def build_task_batch(task: str, seeds, n_clients: int, lam: float, *,
+                     per_client: int = 128, n_test: int = 512, device="cuda"):
+    """Per-seed client data stacked for a campaign batch with
+    `per_seed_fleets=True`: seed s draws exactly `build_task(...,
+    seed=s)`, what `run_fl(seed=s)` builds. Returns (cx (B, S, n, ...),
+    cy (B, S, n), test {"x": (B, n_test, ...), "y": (B, n_test)})."""
+    outs = [build_task(task, n_clients, lam, per_client=per_client,
+                       n_test=n_test, seed=s, device=device) for s in seeds]
+    return (torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+            {k: torch.stack([o[2][k] for o in outs]) for k in outs[0][2]})
+
+
 def quick_cfg(n_select: int = 20, alpha: float = 1.0,
               beta: float = 1.0) -> FLConfig:
     """Single-CPU-core benchmark scale: same algorithm, smaller loops."""
@@ -156,7 +168,8 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
            staleness_power: float = 0.5, delay_jitter: float = 0.0,
            async_delay: str = "wall", trace: Optional[str] = None,
            health: Optional[HealthCfg] = None,
-           checkpoint_every: Optional[int] = None, resume: Optional[str] = None,
+           checkpoint_every: Optional[int] = None,
+           checkpoint_dir: Optional[str] = None, resume: Optional[str] = None,
            fleet_shards: Optional[int] = None,
            device="cuda") -> RunResult:
     """Run one FL campaign on `device` (a CUDA device by default).
@@ -195,10 +208,17 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     JSON and sets `RunResult.spans`; tracing is host-side only, and the
     run's numbers are bitwise those of the untraced run.
 
-    Not ported, raising NotImplementedError: `engine="loop"`, the
-    reference's one-dispatch-per-round loop (ROADMAP A13; the port's
-    engine is the chunked one, `engine="scan"`), `checkpoint_every` and
-    `resume` (A14), and `fleet_shards` above 1 (A16)."""
+    `engine="loop"` is the reference's per-round driver
+    (`launch.engine.run_loop`): one round a step with its scalars read on
+    the host, evaluated at `round % eval_every == 0` and at the last
+    round, stopping at the first evaluation at or above target; it has
+    no chunks (`chunk_wall_s` None) and takes no async aggregation,
+    streaming telemetry, health or checkpoints (ValueError). Same seeds,
+    so its rounds are the chunked engine's.
+
+    Not ported, raising NotImplementedError: `checkpoint_every`,
+    `checkpoint_dir` and `resume` (ROADMAP A14), and `fleet_shards`
+    above 1 (A16)."""
     if trace is not None:
         kw = dict(locals())
         kw.pop("trace")
@@ -216,10 +236,24 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     if aggregation not in ("sync", "async"):
         raise ValueError(f"unknown aggregation {aggregation!r} "
                          "(use 'sync' or 'async')")
+    if engine == "loop":   # the reference's refusals, in its order
+        if aggregation == "async":
+            raise ValueError("aggregation='async' needs engine='scan' — the "
+                             "legacy loop driver has no buffer carry")
+        if health is not None:
+            raise ValueError("health monitoring needs engine='scan' — the "
+                             "legacy loop driver has no chunk boundaries to "
+                             "sample at")
+        if checkpoint_every is not None or resume is not None:
+            raise ValueError("checkpoint/resume needs engine='scan' — the "
+                             "carry is serialized at chunk boundaries")
+        if telemetry != "dense":
+            raise ValueError("telemetry='streaming' needs engine='scan' — the "
+                             "legacy loop driver has no on-device reducers")
     # the reference's options the port does not have yet, each with the
     # ROADMAP item that brings it
     for name, val, on, item in (
-            ("engine", engine, engine == "loop", "A13"),
+            ("checkpoint_dir", checkpoint_dir, checkpoint_dir is not None, "A14"),
             ("resume", resume, resume is not None, "A14"),
             ("checkpoint_every", checkpoint_every, checkpoint_every is not None, "A14"),
             ("fleet_shards", fleet_shards, (fleet_shards or 1) > 1, "A16")):
@@ -252,17 +286,26 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     if scen.dynamic:
         env_gen = torch.Generator(device=dev).manual_seed(seed + 3)
         env_u = torch.rand(4, n_clients, generator=env_gen, device=dev)
-    res = run_rounds(
-        model, fleet, cx, cy, cfg, METHODS[method], rounds=rounds,
-        seed=seed + 1,
-        params=model.init(torch.Generator(device=dev).manual_seed(seed + 2)),
-        chunk_size=max(1, min(chunk_size, eval_every)),
-        eval_fn=make_eval_fn(model, test["x"], test["y"]),
-        target_acc=target_acc, scenario=scen,
-        env=init_env_state(fleet, scen, env_u), async_cfg=acfg,
-        telemetry=tcfg, health=health, device=dev)
+    kw = dict(rounds=rounds, seed=seed + 1,
+              params=model.init(torch.Generator(device=dev).manual_seed(seed + 2)),
+              eval_fn=make_eval_fn(model, test["x"], test["y"]),
+              target_acc=target_acc, scenario=scen,
+              env=init_env_state(fleet, scen, env_u), device=dev)
+    if engine == "loop":
+        def on_eval(r, acc, m):
+            if verbose:
+                log.info(f"r={r:4d} acc={acc:.4f} loss={m['global_loss']:.4f} "
+                         f"drop={int(m['n_dropped'])} "
+                         f"H={float(m['mean_H_selected']):.1f}")
+
+        res = run_loop(model, fleet, cx, cy, cfg, METHODS[method],
+                       eval_every=eval_every, on_eval=on_eval, **kw)
+    else:
+        res = run_rounds(model, fleet, cx, cy, cfg, METHODS[method],
+                         chunk_size=max(1, min(chunk_size, eval_every)),
+                         async_cfg=acfg, telemetry=tcfg, health=health, **kw)
     h = res.history
-    if verbose:
+    if verbose and engine == "scan":
         ends = np.cumsum(res.chunk_rounds) - 1
         for acc, r_end in zip(res.acc_curve, ends):
             log.info(f"r={r_end:4d} acc={acc:.4f} "
@@ -285,7 +328,8 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         task=task, method=method, rounds_run=res.rounds_run,
         reached_round=res.reached_round, target_acc=target_acc,
         history={k: np.asarray(h.get(k, empty), np.float64) for k in hist_keys}
-        | {k: np.asarray(h[k], np.float64) for k in FAULT_HIST_KEYS if k in h}
+        | {k: np.asarray(h[k], np.float64) for k in FAULT_HIST_KEYS
+           if k in h and engine == "scan"}
         | per_dev | {
             "residual_energy": res.state.residual_energy.cpu().numpy(),
             "init_energy": fleet.init_energy.cpu().numpy(),
@@ -338,7 +382,12 @@ def main(argv=None) -> None:
     ap.add_argument("--alpha", type=float, default=1.0)
     ap.add_argument("--beta", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", default="scan", choices=("scan", "loop"),
+                    help="'scan': the chunked engine; 'loop': the per-round "
+                         "driver (sync, dense telemetry, no health)")
     ap.add_argument("--chunk-size", type=int, default=8)
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="checkpoint directory (not ported yet: ROADMAP A14)")
     ap.add_argument("--scenario", default="static-paper",
                     choices=sorted(SCENARIOS),
                     help="fleet dynamics; lossy-uplink and flaky-fleet "
@@ -403,7 +452,8 @@ def main(argv=None) -> None:
                  n_clients=args.clients, n_select=args.select, lam=args.lam,
                  target_acc=args.target_acc, alpha=args.alpha,
                  beta=args.beta, seed=args.seed, small=not args.full_width,
-                 verbose=not args.quiet, chunk_size=args.chunk_size,
+                 verbose=not args.quiet, engine=args.engine,
+                 chunk_size=args.chunk_size, checkpoint_dir=args.checkpoint_dir,
                  scenario=args.scenario, probe_every=args.probe_every,
                  aggregation=args.aggregation, buffer_m=args.buffer_m,
                  staleness_power=args.staleness_power,

@@ -9,7 +9,7 @@ reproduces: the same seed gives bitwise-equal fleet arrays).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -119,3 +119,14 @@ def build_fleet(n_devices: int = 100, *, seed: int = 0,
         e0_reserve=t(battery * e0_frac),
         data_size=t(sizes, np.int32),
     )
+
+
+def build_fleet_batch(seeds: Sequence[int], n_devices: int = 100,
+                      **kwargs) -> DeviceFleet:
+    """Per-seed fleets stacked into a DeviceFleet of (B, S) leaves, B =
+    len(seeds), for a campaign batch with `per_seed_fleets=True`: seed s
+    draws exactly `build_fleet(n_devices, seed=s, **kwargs)`, the fleet
+    `launch.fl_run.run_fl(seed=s)` builds. The batch's `.n` reports B:
+    read `type_id.shape[-1]` for the fleet size."""
+    fleets = [build_fleet(n_devices, seed=s, **kwargs) for s in seeds]
+    return DeviceFleet(*(torch.stack(xs) for xs in zip(*fleets)))

@@ -13,7 +13,7 @@ that rejects corrupted updates is `core.resilience`.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -59,6 +59,32 @@ class FaultCfg:
         """False when every rate is 0: the round injects nothing."""
         return (self.abort_rate > 0.0 or self.loss_rate > 0.0
                 or self.corrupt_rate > 0.0 or self.straggler_rate > 0.0)
+
+
+class FaultParams(NamedTuple):
+    """Traced fault rates (0-d f32 tensors), carried inside
+    `core.methods.MethodParams` so each cell of a campaign grid reads its
+    own. `corrupt_scale` and `corrupt_nan_frac` stay constants read from
+    the scenario's FaultCfg (they shape the corruption, not the
+    method)."""
+    abort_rate: torch.Tensor
+    loss_rate: torch.Tensor
+    corrupt_rate: torch.Tensor
+    straggler_rate: torch.Tensor
+    straggler_mult: torch.Tensor
+
+
+def fault_params(cfg: Optional[FaultCfg], device="cpu") -> FaultParams:
+    """Lower a FaultCfg (None: no faults) to FaultParams on `device`."""
+    c = cfg if cfg is not None else FaultCfg()
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    return FaultParams(abort_rate=f32(c.abort_rate), loss_rate=f32(c.loss_rate),
+                       corrupt_rate=f32(c.corrupt_rate),
+                       straggler_rate=f32(c.straggler_rate),
+                       straggler_mult=f32(c.straggler_mult))
 
 
 class FaultDraws(NamedTuple):

@@ -41,8 +41,8 @@ def dev():
     return torch.device("cuda")
 
 
-def _select_case(S, case, K, dev):
-    rng = np.random.RandomState(S + len(case))
+def _select_case(S, case, K, dev, seed=0):
+    rng = np.random.RandomState(S + len(case) + seed)
     cols = [rng.uniform(lo, hi, S) for lo, hi in
             ((0, 1e4), (1, 120), (10, 2e3), (1e3, 6e4), (100, 3e3), (0, 1))]
     avail = rng.uniform(0, 1, S) >= 0.3
@@ -754,3 +754,76 @@ def test_async_and_fault_rounds_on_the_card_match_the_cpu(dev, scenario, akw):
                 assert torch.equal(x, getattr(card_ast, k).cpu()), k
     per_round = 1 if acfg is None else 1 + acfg.lands(K)
     assert cpu_launches == 0 and card_launches == per_round * R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,P", [(18, 20, 206_922), (18, 40, 206_922), (3, 7, 1001),
+                                   (4, 5, 1024)])
+def test_fedavg_batched_matches_plain_and_single_launches(dev, C, K, P):
+    """C aggregations in one launch of the batched kernel, by the op's
+    vmap rule: within atol 1e-5 of the plain version and bitwise the C
+    single launches (each cell sums in its own launch's order); a NaN
+    row at weight 0 gives NaN at its NaN positions on both sides."""
+    g = torch.Generator(device=dev).manual_seed(C + K + P)
+    x = torch.randn(C, K, P, generator=g, device=dev)
+    w = torch.rand(C, K, generator=g, device=dev)
+    w = w / w.sum(1, keepdim=True)
+    x[1, 2, ::7] = float("nan")
+    w[1, 2] = 0.0
+    before = fedavg_ops.launches
+    got = torch.func.vmap(fedavg_ops.weighted_aggregate)(x, w)
+    torch.cuda.synchronize()
+    assert fedavg_ops.launches == before + 1 and got.shape == (C, P)
+    singles = torch.stack([fedavg_ops.weighted_aggregate(x[c], w[c]) for c in range(C)])
+    want = fedavg_ref.weighted_aggregate_batched(x, w)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and int(nan.sum()) == -(-P // 7)
+    assert torch.equal(got[~nan], singles[~nan])
+    assert (got[~nan] - want[~nan]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,K,eps", [(6, 100, 20, 0.0), (6, 100, 20, 0.1),
+                                       (3, 8193, 20, 0.0), (3, 8193, 257, 0.1)])
+@pytest.mark.parametrize("case", ["random", "nan", "negzero", "under_k"])
+def test_rewafl_select_batched_matches_plain_and_single_launches(dev, B, S, K, eps,
+                                                                 case):
+    """B selections in one launch (one block, or one set of tiles and a
+    merging block, a selection) by the op's vmap rule: bitwise the plain
+    version and the B single launches, at S 100 and past one block's
+    8,192 devices, with ~30% unavailable, NaN and ±0 utilities."""
+    cases = [_select_case(S, case, K, dev, seed=1000 * b) for b in range(B)]
+    avail = torch.stack([c[0] for c in cases])
+    ui = UtilityInputs(*(torch.stack([c[1][i] for c in cases]) for i in range(5)))
+    rnd = torch.stack([c[2] for c in cases])
+    kx = _explore_slots(eps, K)
+    kw = dict(k_exploit=K - kx, k_explore=kx, T_round=60.0, alpha=1.0, beta=1.0)
+
+    def one(a, s, t, e, r, e0, u):
+        return select_ops.select_topk(a, UtilityInputs(s, t, e, r, e0), u, **kw)
+
+    before = select_ops.launches
+    idx, live = torch.func.vmap(one)(avail, *ui, rnd)
+    torch.cuda.synchronize()
+    assert select_ops.launches == before + 1 and idx.shape == live.shape == (B, K)
+    ridx, rlive = select_ref.select_topk_batched(avail, ui, rnd, **kw)
+    assert torch.equal(idx, ridx) and torch.equal(live, rlive)
+    for b in range(B):
+        sidx, slive = select_ops.select_topk(avail[b], UtilityInputs(*(x[b] for x in ui)),
+                                             rnd[b], **kw)
+        assert torch.equal(idx[b], sidx) and torch.equal(live[b], slive)
+
+
+@pytest.mark.cuda
+def test_stat_util_vmap_is_one_launch(dev):
+    """The C cells' (K, n) loss rows fold into one (C·K, n) launch."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    losses = torch.rand(18, 20, 32, generator=g, device=dev) * 5
+    sizes = torch.randint(1, 1000, (18, 20), generator=g, device=dev, dtype=torch.int32)
+    before = stat_ops.launches
+    got = torch.func.vmap(stat_ops.stat_utility)(losses, sizes)
+    torch.cuda.synchronize()
+    assert stat_ops.launches == before + 1 and got.shape == (18, 20)
+    torch.testing.assert_close(got, stat_ref.stat_utility(losses.reshape(360, 32),
+                                                          sizes.reshape(360)).reshape(18, 20),
+                               rtol=1e-5, atol=0)

@@ -185,19 +185,18 @@ def test_run_fl_default_device_raises_without_a_gpu():
 
 
 # the ROADMAP item that brings each option the port does not have yet
-UNPORTED_ITEM = {"resume": "A14", "engine": "A13", "checkpoint_every": "A14",
-                 "fleet_shards": "A16"}
+UNPORTED_ITEM = {"resume": "A14", "checkpoint_dir": "A14",
+                 "checkpoint_every": "A14", "fleet_shards": "A16"}
 
 
 @pytest.mark.parametrize("kw", [dict(resume="ckpts"),
-                                dict(engine="loop"),
+                                dict(checkpoint_dir="ckpts"),
                                 dict(checkpoint_every=2),
                                 dict(fleet_shards=2)])
 def test_unported_options_raise(kw):
     """Options of the reference's `run_fl` that the port does not have
     yet raise, naming the ROADMAP item that brings them: resuming and
-    writing checkpoints (A14), the per-round `loop` engine (A13), fleet
-    sharding (A16)."""
+    writing checkpoints (A14), fleet sharding (A16)."""
     args = dict(rounds=1, n_clients=4, n_select=2, device="cpu") | kw
     item = UNPORTED_ITEM[next(iter(kw))]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -209,11 +208,13 @@ def test_unported_options_raise(kw):
                                 dict(aggregation="async"),
                                 dict(telemetry="streaming"),
                                 dict(trace="t.json"),
-                                dict(health=HealthCfg())])
+                                dict(health=HealthCfg()),
+                                dict(engine="loop")])
 def test_formerly_unported_options_run(kw, tmp_path):
     """The fault scenarios (ROADMAP A11), async aggregation (A10),
-    streaming telemetry, the trace and the health monitors (A12), which
-    raised or were missing until they were ported, run one CPU round."""
+    streaming telemetry, the trace and the health monitors (A12) and the
+    per-round `loop` engine (A13), which raised or were missing until
+    they were ported, run one CPU round."""
     if "trace" in kw:
         kw = dict(trace=str(tmp_path / kw["trace"]))
     res = run_fl(rounds=1, n_clients=4, n_select=2, device="cpu", **kw)
@@ -226,6 +227,9 @@ def test_formerly_unported_options_run(kw, tmp_path):
         assert "H_trace" not in res.history
         np.testing.assert_array_equal(res.history["sel_count"],
                                       res.telemetry["tel/selected/count"])
+    elif "engine" in kw:
+        assert res.chunk_wall_s is None and len(res.acc_curve) == 1
+        assert res.history["H_trace"].shape == (1, 4)
     elif "trace" in kw:
         names = {e["name"] for e in json.loads(pathlib.Path(kw["trace"]).read_text())
                  ["traceEvents"]}

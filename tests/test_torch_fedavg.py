@@ -61,3 +61,28 @@ def test_wrapper_on_cpu_runs_plain_version_without_counting():
     with pytest.raises(ValueError, match="unsupported device"):
         ops.weighted_aggregate(torch.from_numpy(x).to("meta"),
                                torch.from_numpy(w).to("meta"))
+
+
+@pytest.mark.parametrize("C,K,P", [(3, 4, 1001), (5, 20, 257)])
+@pytest.mark.parametrize("weights_batched", [True, False])
+def test_vmap_runs_the_batched_op_equal_to_single_calls(C, K, P, weights_batched):
+    """Under `torch.func.vmap` (a campaign grid's cell axis) the op's vmap
+    rule runs the batched op once: bitwise the loop of single calls, with
+    the weights batched or shared; a second vmap level folds into the
+    cells. The batched plain version is the plain version of each cell."""
+    rng = np.random.RandomState(C * K + P)
+    x = torch.tensor(rng.standard_normal((C, K, P)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(0, 1, (C, K)), dtype=torch.float32)
+    if not weights_batched:
+        w = w[0]
+    got = torch.func.vmap(ops.weighted_aggregate,
+                          in_dims=(0, 0 if weights_batched else None))(x, w)
+    want = torch.stack([ops.weighted_aggregate(x[c], w[c] if weights_batched else w)
+                        for c in range(C)])
+    assert torch.equal(got, want)
+    wb = w if weights_batched else w.expand(C, K)
+    assert torch.equal(ref.weighted_aggregate_batched(x, wb), want)
+    assert torch.equal(ops.weighted_aggregate_batched(x, wb), want)
+    two = torch.func.vmap(torch.func.vmap(ops.weighted_aggregate))(
+        x.unsqueeze(0).expand(2, C, K, P), wb.unsqueeze(0).expand(2, C, K))
+    assert torch.equal(two[1], want)

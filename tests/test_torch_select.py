@@ -376,3 +376,58 @@ def test_select_aggregate_runs_plain_versions_on_cpu_without_counting():
                                      alpha=1.0, beta=1.0)
     assert (ops.launches, fedavg_ops.launches) == before
     assert mask.shape == (30,) and agg.shape == (7,) and int(mask.sum()) == 4
+
+
+@pytest.mark.parametrize("k_exploit,k_explore", [(8, 0), (6, 2), (0, 8)])
+@pytest.mark.parametrize("case", ["random", "ties", "under_k"])
+def test_vmap_runs_the_batched_selection_equal_to_single_calls(k_exploit, k_explore,
+                                                               case):
+    """Under `torch.func.vmap` (a seed batch) the selection op's vmap rule
+    runs the batched op once (one launch on the card): bitwise the loop
+    of single selections, with a leaf shared (unbatched) too; the
+    batched plain version is each selection's plain version."""
+    B, S = 4, 60
+    cases = [_case(b * 7 + len(case), S, case) for b in range(B)]
+    avail = torch.from_numpy(np.stack([c[0] for c in cases]))
+    leaves = UtilityInputs(*(torch.from_numpy(np.stack([c[1][i] for c in cases]))
+                             for i in range(5)))
+    u = torch.from_numpy(np.stack([c[2] for c in cases]))
+    kw = dict(k_exploit=k_exploit, k_explore=k_explore, T_round=60.0, alpha=1.0,
+              beta=1.0)
+
+    def one(a, stat, t, e, r, e0, uu):
+        return ops.select_topk(a, UtilityInputs(stat, t, e, r, e0), uu, **kw)
+
+    # e0 shared by every selection: an unbatched argument
+    got = torch.func.vmap(one, in_dims=(0, 0, 0, 0, 0, None, 0))(
+        avail, *leaves[:4], leaves.e0[0], u)
+    want = [ops.select_topk(avail[b], UtilityInputs(*(x[b] for x in leaves[:4]),
+                                                    leaves.e0[0]), u[b], **kw)
+            for b in range(B)]
+    for i in range(2):
+        assert torch.equal(got[i], torch.stack([w[i] for w in want]))
+    e0 = UtilityInputs(*leaves[:4], leaves.e0[0].expand(B, S))
+    for fn in (ref.select_topk_batched, ops.select_topk_batched):
+        out = fn(avail, e0, u, **kw)
+        assert all(torch.equal(out[i], got[i]) for i in range(2))
+
+
+@pytest.mark.parametrize("eps", [0.0, 0.1, 1.0])
+def test_select_traced_is_the_static_selection(eps):
+    """`select_traced`, the campaign grid's selection with a tensor ε,
+    gives the static `select_mask(scores=)` masks at equal ε, and under
+    vmap over cells each cell's."""
+    masks = []
+    for b in range(3):
+        scores, avail = _scores_case(b, 40, "ties", 8)
+        u = torch.from_numpy(np.array(jax.random.uniform(jax.random.PRNGKey(b), (40,))))
+        got = ops.select_traced(u, torch.from_numpy(scores), 8,
+                                torch.from_numpy(avail), torch.tensor(eps))
+        want = ops.select_mask(u, 8, torch.from_numpy(avail), eps,
+                               scores=torch.from_numpy(scores))
+        assert torch.equal(got, want)
+        masks.append((u, torch.from_numpy(scores), torch.from_numpy(avail), got))
+    u, s, a, m = (torch.stack(x) for x in zip(*masks))
+    v = torch.func.vmap(lambda u, s, a, e: ops.select_traced(u, s, 8, a, e))(
+        u, s, a, torch.full((3,), eps))
+    assert torch.equal(v, m)

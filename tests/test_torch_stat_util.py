@@ -56,3 +56,22 @@ def test_launch_counter_untouched_on_the_cpu():
     before = ops.launches
     ops.stat_utility(torch.ones(3, 4), torch.ones(3))
     assert ops.launches == before
+
+
+@pytest.mark.parametrize("sizes_batched", [True, False])
+def test_vmap_folds_the_cells_into_one_call(sizes_batched):
+    """Under `torch.func.vmap` the op's vmap rule folds the C cells'
+    (K, n) rows into one (C·K, n) call (one launch on the card), equal to
+    the loop of single calls."""
+    g = torch.Generator().manual_seed(3)
+    losses = torch.rand(6, 4, 9, generator=g) * 5
+    sizes = torch.randint(1, 900, (6, 4), generator=g, dtype=torch.int32)
+    s = sizes if sizes_batched else sizes[0]
+    got = torch.func.vmap(ops.stat_utility,
+                          in_dims=(0, 0 if sizes_batched else None))(losses, s)
+    want = torch.stack([ops.stat_utility(losses[c], s[c] if sizes_batched else s)
+                        for c in range(6)])
+    assert torch.equal(got, want)
+    flat = ops.stat_utility(losses.reshape(24, 9),
+                            (s if sizes_batched else s.expand(6, 4)).reshape(24))
+    assert torch.equal(flat.reshape(6, 4), want)
