@@ -133,12 +133,18 @@ Phases, in order; any failure exits non-zero:
    3 and 5) beside the chunked run; a small mixed sync x async grid and
    a small flaky-fleet grid on the card against the CPU (selections and
    counters bitwise, floats within rtol 1e-3); then
-   `select_aggregate` (the select kernel, a
-   K-row gather and the fedavg kernel) against its plain version (the
-   dense masked sum) at S 100, K 20, P 206,922 and S 8,193, K 257, P
-   4,096, eps 0 and 0.1, ~30% and all but K/2 devices unavailable: masks
-   bitwise, the aggregate within atol 1e-5; and its time beside the
-   same steps issued one by one;
+   `select_aggregate` (the select kernel, then `fedavg_indexed`, which
+   reads the K selected rows in place) against its plain version (the
+   dense masked sum) at S 100, K 20, P 206,922, S 8,193, K 257, P 4,096
+   and S 8,193, K 257, P 206,922, f32 and bf16 deltas, eps 0 and 0.1,
+   ~30% and all but K/2 devices unavailable: masks bitwise, the
+   aggregate within atol 1e-5, one launch counted by each wrapper a
+   call; at the first and last shape the device kernels a call
+   (torch.profiler: 2, and 3 above 8,192 devices) and its times
+   (graph-replayed, issued from Python, L2-cold after 256 MB are
+   written; with programmatic dependent launch and without) beside the
+   same steps issued one by one, and fedavg_indexed alone beside
+   `embedding_bag`;
 8. the serving paths, each `serve(arch, batch=4, prompt_len=2048,
    tokens=32)` at full width with bf16 weights drawn on the card, after
    one warm-up call, with every kernel's launch count read just after,
@@ -778,6 +784,8 @@ TC_KERNELS = ("flash_attention", "slstm")   # those with a bf16 tensor-core kern
 def reset_launches() -> None:
     for k, m in _ops_modules().items():
         m.launches = 0
+        if k == "fedavg":
+            m.indexed_launches = 0
         if k in TC_KERNELS:
             m.tc_launches = 0
 
@@ -1881,9 +1889,12 @@ def phase_profile_grid(dev) -> None:
 # ------------------------------------------------------- select_aggregate
 
 # (S, K, P): the paper CNN's parameters at the FL cell's fleet; a fleet
-# above one block's 8,192 devices (two select launches) and K above 256
-AGG_CASES = [(MAIN_S, MAIN_K, FEDAVG_P), (8193, 257, 4096)]
+# above one block's 8,192 devices (two select launches) and K above 256,
+# at P 4,096 and at the CNN's P (a 6.8 GB f32 stack)
+AGG_CASES = [(MAIN_S, MAIN_K, FEDAVG_P), (8193, 257, 4096), (8193, 257, FEDAVG_P)]
+AGG_TIMED = (AGG_CASES[0], AGG_CASES[2])
 AGG_ATOL = 1e-5   # fedavg's: the K-row and dense S-row sums add in other orders
+FLUSH_BYTES = 256 * 2**20   # written between L2-cold calls: the L2 holds 50 MB
 
 
 def agg_inputs(S, K, P, case, seed, dev):
@@ -1894,69 +1905,208 @@ def agg_inputs(S, K, P, case, seed, dev):
     return avail, ui, rnd, deltas, weights
 
 
+def time_cold_ms(fn, reps: int = 50) -> float:
+    """Median device time of one call with a cold L2: one call captured in
+    a CUDA graph, replayed between CUDA events after FLUSH_BYTES are
+    written (so the rows it reads come from device memory)."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    events = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+AGG_COUNT = """
+import json, re, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke
+from repro_torch.kernels.rewafl_select import ops
+S, K, P, calls = (int(a) for a in sys.argv[2:6])
+dev = torch.device("cuda")
+avail, ui, rnd, deltas, w = chip_smoke.agg_inputs(S, K, P, "unavail30", 11, dev)
+kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+        ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
+    torch.cuda.synchronize()
+ev = chip_smoke._device_kernels(prof)[0]
+print(json.dumps([sum(e.count for e in ev) / calls,
+                  sorted(re.sub(r"^void |\\(.*", "", e.key.replace("(anonymous namespace)::", ""))
+                         for e in ev)]))
+"""
+
+
+def agg_kernels_a_call(S: int, K: int, P: int, calls: int = 3):
+    """(device kernels a call, their names) of `select_aggregate` at (S, K,
+    P), f32, eps 0, under torch.profiler in a fresh process: in this one,
+    after the earlier phases, the profiler records the host's launch calls
+    but no device activity (the card tests count in their own process)."""
+    out = subprocess.run([sys.executable, "-c", AGG_COUNT, ROOT, str(S), str(K), str(P),
+                          str(calls)], capture_output=True, text=True, cwd=ROOT)
+    check(out.returncode == 0, f"select_aggregate S={S}: the kernel count's process "
+                               f"exited {out.returncode}: {out.stderr[-2000:]}")
+    return tuple(json.loads(out.stdout.strip().splitlines()[-1]))
+
+
 def phase_select_aggregate(dev) -> dict:
-    """`select_aggregate` (the select kernel, a K-row gather, the fedavg
-    kernel) against its plain version (the dense masked S-row sum): masks
-    bitwise, the aggregate within atol 1e-5, one launch of each kernel a
-    call; at eps 0 and 0.1, with ~30% and with all but K/2 devices
-    unavailable. Then its time at the first case, eps 0, beside the same
-    steps issued one by one as the round issues them (`select_mask`, the
-    slots of its mask, gather, `weighted_aggregate`)."""
+    """`select_aggregate` (the select kernel, then fedavg_indexed on the K
+    selected rows, read in place) against its plain version (the dense
+    masked S-row sum): masks bitwise, the aggregate within atol 1e-5, one
+    launch counted by each wrapper a call; f32 and bf16 deltas, eps 0 and
+    0.1, ~30% and all but K/2 devices unavailable, at every AGG_CASES
+    row. Its own path: one call with the counts reset just before it and
+    read just after. At the AGG_TIMED rows, eps 0, f32: the device kernels
+    a call (torch.profiler: 2, 3 above 8,192 devices) and its times,
+    graph-replayed, issued from Python and L2-cold, with programmatic
+    dependent launch and without, beside the same steps issued one by one
+    as the round issues them (`select_mask`, the slots of its mask,
+    gather, `weighted_aggregate`), the plain version, and fedavg_indexed
+    alone on the call's slots beside its plain version and one library
+    call (`embedding_bag` in sum mode with the normalised weights)."""
+    import torch.nn.functional as F
+
     from repro_torch.core.round import select_slots
     from repro_torch.kernels.fedavg import ops as fedavg_ops
+    from repro_torch.kernels.fedavg import ref as fedavg_ref
     from repro_torch.kernels.rewafl_select import ops, ref
     kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
-    main_err = None
+    errs = {}
     for S, K, P in AGG_CASES:
-        for eps in (0.0, 0.1):
-            for case in ("unavail30", "under_k"):
-                avail, ui, rnd, deltas, w = agg_inputs(S, K, P, case, S + K, dev)
-                l0 = ops.launches, fedavg_ops.launches
-                mask, agg = ops.select_aggregate(rnd, K, avail, eps, ui, deltas, w, **kw)
-                pmask, pagg = ref.select_aggregate(rnd, K, avail, eps, ui, deltas, w, **kw)
-                torch.cuda.synchronize()
-                name = f"select_aggregate S={S} K={K} P={P} eps={eps} {case}"
-                check((ops.launches - l0[0], fedavg_ops.launches - l0[1]) == (1, 1),
-                      f"{name}: {ops.launches - l0[0]} select and "
-                      f"{fedavg_ops.launches - l0[1]} fedavg launches")
-                check(torch.equal(mask, pmask), f"{name}: masks differ")
-                check(int(mask.sum()) == min(K, int(avail.sum())),
-                      f"{name}: {int(mask.sum())} selected")
-                err = (agg - pagg).abs().max().item()
-                check(agg.shape == (P,) and err <= AGG_ATOL,
-                      f"{name}: max |composed - plain| = {err} > {AGG_ATOL}")
-                print(f"{name}: mask bitwise, max_abs_err {err:.3g} (atol {AGG_ATOL})",
-                      flush=True)
-                if main_err is None:
-                    main_err = err
+        for dtype in (torch.float32, torch.bfloat16):
+            for eps in (0.0, 0.1):
+                for case in ("unavail30", "under_k"):
+                    avail, ui, rnd, deltas, w = agg_inputs(S, K, P, case, S + K, dev)
+                    deltas = deltas.to(dtype)
+                    l0 = ops.launches, fedavg_ops.launches, fedavg_ops.indexed_launches
+                    mask, agg = ops.select_aggregate(rnd, K, avail, eps, ui, deltas, w, **kw)
+                    pmask, pagg = ref.select_aggregate(rnd, K, avail, eps, ui, deltas, w, **kw)
+                    torch.cuda.synchronize()
+                    name = (f"select_aggregate S={S} K={K} P={P} {str(dtype)[6:]} "
+                            f"eps={eps} {case}")
+                    n = (ops.launches - l0[0], fedavg_ops.launches - l0[1],
+                         fedavg_ops.indexed_launches - l0[2])
+                    check(n == (1, 1, 1), f"{name}: {n[0]} select, {n[1]} fedavg "
+                                          f"({n[2]} fedavg_indexed) launches")
+                    check(torch.equal(mask, pmask), f"{name}: masks differ")
+                    check(int(mask.sum()) == min(K, int(avail.sum())),
+                          f"{name}: {int(mask.sum())} selected")
+                    err = (agg - pagg).abs().max().item()
+                    check(agg.shape == (P,) and agg.dtype == torch.float32
+                          and err <= AGG_ATOL,
+                          f"{name}: max |kernel - plain| = {err} > {AGG_ATOL}")
+                    print(f"{name}: mask bitwise, max_abs_err {err:.3g} (atol {AGG_ATOL})",
+                          flush=True)
+                    errs.setdefault((S, K, P, dtype), err)
+                    del deltas, pagg
+    rows = {}
+    for S, K, P in AGG_TIMED:
+        avail, ui, rnd, deltas, w = agg_inputs(S, K, P, "unavail30", 11, dev)
+        big = S * P > 10**8   # the plain versions' temporaries: fewer graph calls
+
+        def call():
+            return ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
+
+        def pdl_off():
+            return ops.aggregate_launches(avail, ui, None, deltas, w, pdl=False,
+                                          k_exploit=K, k_explore=0, **kw)
+
+        def one_by_one():
+            mask = ops.select_mask(rnd, K, avail, 0.0, ui=ui, **kw)
+            idx, live = select_slots(mask, K)
+            wk = w[idx] * live
+            return mask, fedavg_ops.weighted_aggregate(deltas[idx], wk / wk.sum().clamp_min(1e-9))
+
+        mask, agg = call()
+        on_mask, on_agg = ops.aggregate_launches(avail, ui, None, deltas, w, pdl=True,
+                                                 k_exploit=K, k_explore=0, **kw)
+        off_mask, off_agg = pdl_off()
+        torch.cuda.synchronize()
+        check(all(torch.equal(mask, m) and torch.equal(agg, a)
+                  for m, a in ((on_mask, on_agg), (off_mask, off_agg))),
+              f"select_aggregate S={S}: PDL on and off differ")
+        per_call, names = agg_kernels_a_call(S, K, P)
+        want = 2 if S <= 8192 else 3
+        check(per_call == want, f"select_aggregate S={S}: {per_call} device kernels "
+                                f"a call, not {want}: {names}")
+        print(f"select_aggregate S={S}: {per_call:g} device kernels a call: {names}",
+              flush=True)
+        idx, live = ops.select_topk(avail, ui, None, k_exploit=K, k_explore=0, **kw)
+        wk = w[idx.long()] * (live > 0)
+        wn = wk / wk.sum().clamp_min(1e-9)
+        idx64, offsets = idx.long(), torch.zeros(1, dtype=torch.long, device=dev)
+        # the pair: the leaves and the availability read, K rows and their
+        # weights read, the mask and the (P,) aggregate written; ~12 flops a
+        # device and 2 an element read. The kernel alone: K rows, the
+        # slots and their weights read, the aggregate and the mask written
+        b_ms, b_by = bound(n_bytes=S * 21 + K * (P + 1) * 4 + S + P * 4,
+                           n_flops=12 * S + 2 * K * P)
+        kb_ms, kb_by = bound(n_bytes=K * P * 4 + K * 12 + P * 4 + S, n_flops=2 * K * P)
+        rows[f"S {S}, K {K}, P {P}"] = dict(
+            ms=time_ms(call), pdl_off_ms=time_ms(pdl_off), eager_ms=time_eager_ms(call),
+            cold_ms=time_cold_ms(call), pdl_off_cold_ms=time_cold_ms(pdl_off),
+            separate_ms=time_ms(one_by_one), separate_eager_ms=time_eager_ms(one_by_one),
+            plain_ms=time_ms(lambda: ref.select_aggregate(rnd, K, avail, 0.0, ui, deltas,
+                                                          w, **kw),
+                             **(dict(reps=5, inner=2) if big else {})),
+            bound_ms=b_ms, bound_by=b_by, kernels_a_call=per_call,
+            max_abs_err=errs[(S, K, P, torch.float32)],
+            bf16_max_abs_err=errs[(S, K, P, torch.bfloat16)],
+            fedavg_indexed=dict(
+                ms=time_ms(lambda: fedavg_ops.weighted_aggregate_indexed(deltas, idx,
+                                                                         live, w)),
+                cold_ms=time_cold_ms(lambda: fedavg_ops.weighted_aggregate_indexed(
+                    deltas, idx, live, w)),
+                plain_ms=time_ms(lambda: fedavg_ref.weighted_aggregate_indexed(
+                    deltas, idx, live, w)),
+                library_ms=time_ms(lambda: F.embedding_bag(
+                    idx64, deltas, offsets, mode="sum", per_sample_weights=wn)),
+                bound_ms=kb_ms, bound_by=kb_by))
+        half = deltas.bfloat16()   # the kernel alone on a bf16 stack
+        del deltas
+        rows[f"S {S}, K {K}, P {P}"]["fedavg_indexed"].update(
+            bf16_ms=time_ms(lambda: fedavg_ops.weighted_aggregate_indexed(half, idx, live, w)),
+            bf16_bound_ms=bound(n_bytes=K * P * 2 + K * 12 + P * 4 + S,
+                                n_flops=2 * K * P)[0])
+        del half
+        torch.cuda.empty_cache()
+    # its own path: one call, the counts reset just before and read after
     S, K, P = AGG_CASES[0]
     avail, ui, rnd, deltas, w = agg_inputs(S, K, P, "unavail30", 11, dev)
-
-    def composed():
-        return ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
-
-    def one_by_one():
-        mask = ops.select_mask(rnd, K, avail, 0.0, ui=ui, **kw)
-        idx, live = select_slots(mask, K)
-        wk = w[idx] * live
-        return mask, fedavg_ops.weighted_aggregate(deltas[idx], wk / wk.sum().clamp_min(1e-9))
-
-    # the five leaves and the mask read once, K of the S rows and their
-    # weights read, the mask and the (P,) aggregate written; the utility's
-    # ~12 flops a device and 2 a gathered element
-    b_ms, b_by = bound(n_bytes=S * 21 + K * (P + 1) * 4 + S + P * 4,
-                       n_flops=12 * S + 2 * K * P)
-    return dict(name="select_aggregate", route="composition of the rewafl_select "
-                "and fedavg CUDA kernels",
+    reset_launches()
+    ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
+    torch.cuda.synchronize()
+    path = dict(read_launches(), fedavg_indexed=fedavg_ops.indexed_launches)
+    check((path["rewafl_select"], path["fedavg"], path["fedavg_indexed"]) == (1, 1, 1),
+          f"select_aggregate's own path launched {path}")
+    main = rows[f"S {S}, K {K}, P {P}"]
+    return dict(name="select_aggregate", route="rewafl_select.cu + fedavg.cu fedavg_indexed",
                 source="src/repro_torch/kernels/rewafl_select/ops.py",
                 replaces="src/repro/kernels/rewafl_select/ops.py:134",
-                shape=f"S {S}, K {K}, P {P} f32, eps 0", launches=0,
-                max_abs_err=main_err, check="mask bitwise, aggregate atol 1e-5",
-                ms=time_ms(composed), eager_ms=time_eager_ms(composed),
-                separate_ms=time_ms(one_by_one), separate_eager_ms=time_eager_ms(one_by_one),
-                plain_ms=time_ms(lambda: ref.select_aggregate(
-                    rnd, K, avail, 0.0, ui, deltas, w, **kw)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                shape=f"S {S}, K {K}, P {P} f32, eps 0", launches=1,
+                launches_by_path={"select_aggregate": path},
+                check="mask bitwise, aggregate atol 1e-5 (f32 and bf16 deltas)",
+                **{k: v for k, v in main.items() if k != "fedavg_indexed"},
+                library_ms=None, rows=rows)
 
 
 # ------------------------------------------------------------- serving path
@@ -2308,11 +2458,18 @@ def main() -> None:
                          "loop": phase_loop(dev)})
     phase_small_grid_agreement(dev)
     agg = phase_select_aggregate(dev)
-    print(f"time select_aggregate: composed {agg['ms']:.5f} ms (issued from Python "
-          f"{agg['eager_ms']:.5f} ms), select_mask + slots + gather + "
-          f"weighted_aggregate {agg['separate_ms']:.5f} ms (issued from Python "
-          f"{agg['separate_eager_ms']:.5f} ms), plain {agg['plain_ms']:.5f} ms, bound "
-          f"{agg['bound_ms']:.6f} ms ({agg['bound_by']})", flush=True)
+    for shape, r in agg["rows"].items():
+        k = r["fedavg_indexed"]
+        print(f"time select_aggregate {shape}: {r['ms']:.5f} ms (PDL off "
+              f"{r['pdl_off_ms']:.5f}; issued from Python {r['eager_ms']:.5f}; L2-cold "
+              f"{r['cold_ms']:.5f}, PDL off {r['pdl_off_cold_ms']:.5f}), select_mask + "
+              f"slots + gather + weighted_aggregate {r['separate_ms']:.5f} ms (issued "
+              f"from Python {r['separate_eager_ms']:.5f} ms), plain {r['plain_ms']:.5f} "
+              f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); fedavg_indexed "
+              f"alone {k['ms']:.5f} ms (L2-cold {k['cold_ms']:.5f}; bf16 stack "
+              f"{k['bf16_ms']:.5f}, bound {k['bf16_bound_ms']:.6f}), plain "
+              f"{k['plain_ms']:.5f} ms, library {k['library_ms']:.5f} ms, bound "
+              f"{k['bound_ms']:.6f} ms ({k['bound_by']})", flush=True)
     profile = "--profile" in sys.argv[1:]
     if profile:
         phase_profile(dev)
@@ -2352,6 +2509,18 @@ def main() -> None:
                     **({"launches_by_path": {p: c[k] for p, c in chaos_counts.items()}}
                        if k in ("rewafl_select", "fedavg", "stat_util") else {}))
                for k, (src, rep, err, chk) in meta.items()]
+    # fedavg_indexed: on select_aggregate's path, timed alone on its slots
+    ix = next(iter(agg["rows"].values()))   # the first timed row, the main one
+    kernels.append(dict(
+        name="fedavg_indexed", route="cuda", source="src/repro_torch/kernels/csrc/fedavg.cu",
+        replaces="src/repro/kernels/rewafl_select/ops.py:134",
+        via="select_aggregate: rewafl_select.cu + fedavg.cu fedavg_indexed",
+        launches=agg["launches_by_path"]["select_aggregate"]["fedavg_indexed"],
+        max_abs_err=agg["max_abs_err"], shape=agg["shape"],
+        **ix["fedavg_indexed"], pair_ms=agg["ms"], pair_bound_ms=agg["bound_ms"],
+        check="atol 1e-5 (f32 and bf16 stacks), mask bitwise",
+        launch_floor_ms=floor_ms,
+        launches_by_path=agg["launches_by_path"]))
     agg["launch_floor_ms"] = floor_ms
     print(json.dumps({"select_aggregate": agg}), flush=True)
     print(json.dumps({"campaign": {

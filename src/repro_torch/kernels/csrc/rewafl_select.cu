@@ -40,6 +40,10 @@
 // block-wide prefix count over the ranked candidates. A candidate g is an
 // exploit pick if its utility key is at or below the k_exploit-th.
 //
+// The last kernel of a call (select_one, select_merge) starts with
+// griddepcontrol.launch_dependents, so that a kernel launched after it
+// with programmatic dependent launch is scheduled while it runs.
+//
 // Launches. Up to TILE devices one block does everything (keys in shared
 // memory, selection, sort, resolution, write): one launch, sized to the
 // fleet (128 threads at S = 100). Above, two launches: one block per TILE
@@ -455,6 +459,15 @@ __device__ void write_explore(const u64* top, int kc, int kx, int kr,
   }
 }
 
+// A kernel launched after this one with programmatic stream
+// serialization (fedavg_indexed, in `select_aggregate`) may start: it
+// waits for this grid to finish before it reads idx and live, so the
+// trigger can come first, and its blocks are then resident when the
+// selection ends. A no-op when no such kernel follows.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
 // S <= TILE: the whole selection in one block. Dynamic shared memory:
 // ux[S] (when kx > 0), ur[S] (when kr > 0), top[pow2_ceil(sel)].
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -462,6 +475,7 @@ select_one(Leaves L, int S, int kx, int kr, int* __restrict__ out_idx,
            int* __restrict__ out_live) {
   extern __shared__ u64 dyn[];
   __shared__ Work w;
+  launch_dependents();
   L = batch_leaves(L, blockIdx.x, S);   // one block a selection
   out_idx += (size_t)blockIdx.x * (kx + kr);
   out_live += (size_t)blockIdx.x * (kx + kr);
@@ -520,6 +534,7 @@ select_merge(Leaves L, int S, const u64* __restrict__ cand_x, int n_cx,
              int* __restrict__ out_idx, int* __restrict__ out_live) {
   extern __shared__ u64 dyn[];
   __shared__ Work w;
+  launch_dependents();
   L = batch_leaves(L, blockIdx.x, S);
   cand_x += blockIdx.x * stride;
   cand_r += blockIdx.x * stride;

@@ -11,21 +11,38 @@ calls `weighted_aggregate_batched` on the (C, K, ...) stack and (C, K)
 weights: one launch of the kernel over the cell axis on the card,
 the batched plain version on the CPU. Each cell's sum runs in the order
 of its own launch, so batched and single results are bitwise equal.
+
+`weighted_aggregate_indexed` is the FedAvg of K rows picked by index
+from an (S, P) stack (`select_aggregate`'s after the selection): on the
+card one launch of `fedavg_indexed` (`csrc/fedavg.cu`), which reads the
+rows in place and writes the aggregate and the (S,) mask of the live
+slots; on the CPU the plain `ref.weighted_aggregate_indexed` and
+`mask_from_slots`. It counts in `launches` and in `indexed_launches`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fedavg import ref
+from repro_torch.kernels.rewafl_select.ref import mask_from_slots
 
 launches = 0   # kernel launches since the last reset (a plain counter)
+indexed_launches = 0   # of them, fedavg_indexed's
+
+# fedavg_indexed is launched with programmatic dependent launch: it may
+# start while the selection kernel before it finishes
+# (`tools/select_aggregate/pdl_turns.py` times both settings)
+PDL = True
 
 _P = ctypes.c_void_p
 _ENTRY = {torch.float32: "fedavg_f32", torch.bfloat16: "fedavg_bf16"}
+_IX_ENTRY = {torch.float32: "fedavg_indexed_f32",
+             torch.bfloat16: "fedavg_indexed_bf16"}
 
 
 @functools.cache
@@ -35,6 +52,11 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [_P, ctypes.c_longlong, ctypes.c_longlong, _P, _P,
                        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P]
+        fn.restype = ctypes.c_int
+    for name in _IX_ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
     return lib
 
@@ -70,6 +92,56 @@ def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"fedavg kernel launch failed: CUDA error {err}")
     launches += 1
     return out.reshape((C,) + x.shape[2:])
+
+
+def indexed_rows(stack: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The (S, P) rows `fedavg_indexed` reads of an (S, ...) stack on the
+    card, with (S,) f32 weights; raises on what the kernel does not take."""
+    if stack.dtype not in _IX_ENTRY:
+        raise ValueError(f"fedavg_indexed: unsupported dtype {stack.dtype}")
+    if stack.dim() < 1 or not 1 <= stack.shape[0] < 2**31:
+        raise ValueError(f"fedavg_indexed: stack must be (S, ...) with 1 <= S "
+                         f"< 2**31, got {tuple(stack.shape)}")
+    S = stack.shape[0]
+    if (weights.device != stack.device or weights.dtype != torch.float32
+            or weights.shape != (S,) or not weights.is_contiguous()):
+        raise ValueError(f"fedavg_indexed: weights must be a contiguous ({S},) "
+                         f"float32 tensor on {stack.device}")
+    if stack.dim() == 2 and stack.stride(1) == 1:
+        return stack              # (S, P) rows, possibly with padded stride
+    if stack.is_contiguous():
+        return stack.reshape(S, -1)
+    raise ValueError("fedavg_indexed: stack must be contiguous, or (S, P) rows "
+                     "with unit stride along P")
+
+
+def launch_indexed(rows: torch.Tensor, idx: torch.Tensor, live: torch.Tensor,
+                   weights: torch.Tensor, pdl: bool, stream: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of `fedavg_indexed` on `indexed_rows`' (S, P) rows:
+    ((P,) f32 aggregate, (S,) bool mask). `pdl`: programmatic dependent
+    launch after the kernel before it on `stream`."""
+    global launches, indexed_launches
+    S, P = rows.shape
+    K = idx.shape[0] if idx.dim() == 1 else -1
+    for name, t in (("idx", idx), ("live", live)):
+        if (t.device != rows.device or t.dtype != torch.int32 or t.shape != (K,)
+                or not t.is_contiguous()):
+            raise ValueError(f"fedavg_indexed: {name} must be a contiguous (K,) "
+                             f"int32 tensor on {rows.device}, like idx")
+    if not 1 <= K < 2**31:
+        raise ValueError(f"fedavg_indexed: K={K} slots; the kernel takes 1 or more")
+    out = torch.empty(P, dtype=torch.float32, device=rows.device)
+    mask = torch.empty(S, dtype=torch.bool, device=rows.device)
+    err = getattr(_lib(), _IX_ENTRY[rows.dtype])(
+        rows.data_ptr(), rows.stride(0), idx.data_ptr(), live.data_ptr(),
+        weights.data_ptr(), out.data_ptr(), mask.data_ptr(), K, P, S, int(pdl),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"fedavg_indexed kernel launch failed: CUDA error {err}")
+    launches += 1
+    indexed_launches += 1
+    return out, mask
 
 
 @torch.library.custom_op("repro_torch::fedavg", mutates_args=(),
@@ -147,3 +219,20 @@ def weighted_aggregate_batched(stack: torch.Tensor,
     (C, K): C aggregations in one launch on the card."""
     _check_device(stack)
     return _fedavg_batched(stack, weights)
+
+
+def weighted_aggregate_indexed(stack: torch.Tensor, idx: torch.Tensor,
+                               live: torch.Tensor, weights: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FedAvg of the K rows `idx` (int32, each in [0, S); live flags `live`,
+    dead slots index 0) of an (S, ...) f32 or bf16 stack, weighted by
+    `weights` (S,) f32 over the live slots and normalised by max(Σ, 1e-9):
+    (f32 aggregate of the row shape, (S,) bool mask of the live slots).
+    The rows are read in place; on the card one launch."""
+    _check_device(stack)
+    if stack.device.type == "cpu":
+        return (ref.weighted_aggregate_indexed(stack, idx, live, weights),
+                mask_from_slots(idx, live, stack.shape[0]))
+    out, mask = launch_indexed(indexed_rows(stack, weights), idx, live, weights,
+                               PDL, torch.cuda.current_stream(stack.device).cuda_stream)
+    return out.reshape(stack.shape[1:]), mask

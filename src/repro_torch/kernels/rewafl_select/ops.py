@@ -20,8 +20,10 @@ wrapper allocates (`csrc/rewafl_select.cu`).
 
 `select_mask` is the round's selection (the kernel for the Eqn-2
 utility, the plain ranking for precomputed scores); `select_aggregate`
-the reference's fused select → gather → FedAvg pass, composed of this
-kernel and the `fedavg` one.
+the reference's fused select → gather → FedAvg pass: on the card this
+kernel, then `fedavg_indexed`, which reads the K selected rows in place
+and writes the aggregate and the mask (two launches, three above 8,192
+devices).
 """
 from __future__ import annotations
 
@@ -256,27 +258,52 @@ def select_aggregate(u: Optional[torch.Tensor], k: int, available: torch.Tensor,
                      weights: torch.Tensor, *, T_round: float, alpha: float,
                      beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused pass: Eqn-2 utility → ε-greedy top-K → weight-normalised
-    FedAvg of the K selected rows of the (S, P) `deltas` stack. Returns
-    ((S,) bool mask, (P,) f32 aggregate).
+    FedAvg of the K selected rows of the (S, ...) `deltas` stack. Returns
+    ((S,) bool mask, f32 aggregate of the row shape).
 
-    A composition of the two kernels, as the reference composes its two
-    Pallas kernels: the selection kernel gives (K,) idx and live flags,
-    a gather takes those K rows (K·P bytes, not S·P) and their weights
-    (zero on dead slots), and the fedavg kernel reduces them with the
-    weights normalised by max(Σw, 1e-9). CPU tensors run both plain
-    versions; on the card each kernel launches (and counts) or raises.
-    Nothing is selected and the aggregate is zero when k ≤ 0."""
+    On the card two kernels and no op between them: the selection kernel
+    writes (K,) idx and live flags, then `fedavg_indexed` reads the K
+    rows in place by index (K·P bytes, not S·P), weights them by their
+    weights times live, normalised by max(Σ, 1e-9), and writes the
+    aggregate and the mask; it is launched with programmatic dependent
+    launch (`fedavg.ops.PDL`). Each wrapper counts its launch. CPU
+    tensors run the plain selection and `weighted_aggregate_indexed`'s
+    plain version. Nothing is selected and the aggregate is zero when
+    k ≤ 0."""
     S = available.shape[-1]
     k_eff = min(k, S)
     if k_eff <= 0:
         return (torch.zeros_like(available),
                 deltas.new_zeros(deltas.shape[1:], dtype=torch.float32))
     k_explore = sel._explore_slots(eps, k_eff)
-    idx, live = select_topk(available, ui, u, k_exploit=k_eff - k_explore,
-                            k_explore=k_explore, T_round=T_round,
-                            alpha=alpha, beta=beta)
-    rows = idx.long()
-    w = weights[rows].float() * (live > 0)
-    wn = w / w.sum().clamp_min(1e-9)
-    agg = fedavg_ops.weighted_aggregate(deltas[rows].float(), wn)
-    return ref.mask_from_slots(idx, live, S), agg
+    kx, kr, T_round, alpha, beta = _consts(available, k_eff - k_explore,
+                                           k_explore, T_round, alpha, beta)
+    kw = dict(k_exploit=kx, k_explore=kr, T_round=T_round, alpha=alpha, beta=beta)
+    rnd = u if k_explore > 0 else None
+    if available.device.type == "cuda":
+        mask, agg = aggregate_launches(available, ui, rnd, deltas, weights,
+                                       pdl=fedavg_ops.PDL, **kw)
+        return mask, agg.reshape(deltas.shape[1:])
+    idx, live = ref.select_topk(available, ui, rnd, **kw)
+    agg, mask = fedavg_ops.weighted_aggregate_indexed(deltas, idx, live, weights)
+    return mask, agg
+
+
+def aggregate_launches(available: torch.Tensor, ui: util.UtilityInputs,
+                       rnd: Optional[torch.Tensor], deltas: torch.Tensor,
+                       weights: torch.Tensor, *, pdl: bool, **kw
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`select_aggregate`'s two calls on the card: the selection, then
+    `fedavg_indexed` on its slots, with programmatic dependent launch or
+    without (`pdl`). Returns ((S,) mask, (P,) f32 aggregate)."""
+    rows = fedavg_ops.indexed_rows(deltas, weights)   # raises before a launch
+    if rows.shape[0] != available.shape[-1] or rows.device != available.device:
+        raise ValueError(f"select_aggregate: {rows.shape[0]} delta rows on "
+                         f"{rows.device} for {available.shape[-1]} devices on "
+                         f"{available.device}")
+    idx, live = _launch(available[None], util.UtilityInputs(*(x[None] for x in ui)),
+                        None if rnd is None else rnd[None], **kw)
+    out, mask = fedavg_ops.launch_indexed(
+        rows, idx[0], live[0], weights, pdl,
+        torch.cuda.current_stream(available.device).cuda_stream)
+    return mask, out

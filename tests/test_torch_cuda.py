@@ -14,7 +14,10 @@ and one bf16 step of the scale (2**-7 of max |plain|) in bf16, on h and
 on the final state (a product rounded to bf16 on the other side of a tie
 moves the steps after it; bf16 runs the cluster kernel, f32 the
 cooperative one; a batch above 16 runs one launch per slice of at most
-16 rows); `stat_util` within rtol 1e-5 (another sum order).
+16 rows); `stat_util` within rtol 1e-5 (another sum order);
+`fedavg_indexed` (the K selected rows of a stack, read in place) within
+atol 1e-5 for f32 and bf16 stacks (an f32 result), its mask equal, and
+`select_aggregate` two kernels a call (three above 8,192 devices).
 """
 import numpy as np
 import pytest
@@ -569,6 +572,133 @@ def test_select_aggregate_matches_plain(dev, S, K, P, eps, case):
     assert int(mask.sum()) == min(K, int(avail.sum()))
     assert agg.shape == (P,) and agg.dtype == torch.float32
     assert (agg - pagg).abs().max().item() <= 1e-5
+
+
+def _indexed_case(S, K, P, pad, dead, dtype, dev, seed):
+    """An (S, P) stack with row stride P + pad, (S,) weights and K slots
+    as the selection writes them (dead ones index 0, live 0, last)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(S, P + pad, generator=g, device=dev).to(dtype)[:, :P]
+    w = torch.rand(S, generator=g, device=dev) + 0.5
+    idx = torch.randperm(S, generator=g, device=dev)[:K].to(torch.int32)
+    live = torch.ones(K, dtype=torch.int32, device=dev)
+    n_dead = K // 3 if dead else 0
+    if n_dead:
+        idx[K - n_dead:], live[K - n_dead:] = 0, 0
+    return x, idx, live, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 20, 257])
+@pytest.mark.parametrize("P", [206_922, 4096, 4097, 7])
+@pytest.mark.parametrize("pad", [0, 1, 6])
+@pytest.mark.parametrize("dead", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fedavg_indexed_matches_plain(dev, K, P, pad, dead, dtype):
+    """fedavg_indexed against its plain version: the aggregate within
+    atol 1e-5 (f32 out of f32 sums in another order, bf16 stacks too),
+    the mask equal to `mask_from_slots`'; row strides P + pad take the
+    16-byte, 8-byte and scalar loads; one launch."""
+    x, idx, live, w = _indexed_case(300, K, P, pad, dead, dtype, dev, K + P + pad)
+    before = fedavg_ops.launches, fedavg_ops.indexed_launches
+    out, mask = fedavg_ops.weighted_aggregate_indexed(x, idx, live, w)
+    want = fedavg_ref.weighted_aggregate_indexed(x, idx, live, w)
+    torch.cuda.synchronize()
+    assert (fedavg_ops.launches, fedavg_ops.indexed_launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    assert out.dtype == torch.float32 and out.shape == (P,)
+    assert (out - want).abs().max().item() <= 1e-5
+    assert torch.equal(mask, select_ref.mask_from_slots(idx, live, 300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [4097, 206_922])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fedavg_indexed_above_a_block_of_slots(dev, P, dtype):
+    """K 1,500: more slots than a block holds at once (1,024), so the sums
+    continue from one chunk of slots to the next."""
+    x, idx, live, w = _indexed_case(2000, 1500, P, 2, True, dtype, dev, 7)
+    out, mask = fedavg_ops.weighted_aggregate_indexed(x, idx, live, w)
+    want = fedavg_ref.weighted_aggregate_indexed(x, idx, live, w)
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= 1e-5
+    assert torch.equal(mask, select_ref.mask_from_slots(idx, live, 2000))
+
+
+@pytest.mark.cuda
+def test_fedavg_indexed_all_dead_and_nan_row_zero(dev):
+    """Every slot dead: a zero aggregate and mask. A NaN in row 0 read by
+    dead slots: NaN at the same positions as the plain version."""
+    x, idx, live, w = _indexed_case(300, 20, 4097, 0, True, torch.float32, dev, 9)
+    out, mask = fedavg_ops.weighted_aggregate_indexed(x, torch.zeros_like(idx),
+                                                      torch.zeros_like(live), w)
+    assert not out.any() and not mask.any()
+    x[0, ::3] = float("nan")
+    out, _ = fedavg_ops.weighted_aggregate_indexed(x, idx, live, w)
+    want = fedavg_ref.weighted_aggregate_indexed(x, idx, live, w)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan) and int(nan.sum()) == -(-4097 // 3)
+    assert (out[~nan] - want[~nan]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,kernels", [(100, 20, 2), (8193, 257, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_aggregate_runs_two_kernels_and_no_op(dev, S, K, kernels, dtype):
+    """On the card `select_aggregate` runs the selection kernel (two above
+    8,192 devices) and fedavg_indexed, and no other device kernel
+    (torch.profiler); bf16 deltas too, against the plain version. A CUDA
+    graph of the call (programmatic dependent launch under capture)
+    replays to the eager result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rewafl_select import ops
+    avail, ui, rnd, deltas, weights = _aggregate_inputs(S, 4096, "random", K, dev, S)
+    deltas = deltas.to(dtype)
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    mask, agg = ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, weights, **kw)
+    pmask, pagg = select_ref.select_aggregate(rnd, K, avail, 0.0, ui, deltas, weights, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, pmask) and (agg - pagg).abs().max().item() <= 1e-5
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, weights, **kw)
+        torch.cuda.synchronize()
+    ev = {e.key: e.count for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    assert sum(ev.values()) == kernels * calls, ev
+    assert sum(c for k, c in ev.items() if "fedavg_indexed" in k) == calls, ev
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, weights, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gmask, gagg = ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, weights, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gmask, mask) and torch.equal(gagg, agg)
+
+
+@pytest.mark.cuda
+def test_select_aggregate_rejects_what_the_kernel_does_not_take(dev):
+    """A wrong dtype, stride, weights or row count raises before any launch."""
+    from repro_torch.kernels.rewafl_select import ops
+    avail, ui, rnd, deltas, weights = _aggregate_inputs(100, 64, "random", 20, dev, 1)
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    before = select_ops.launches, fedavg_ops.launches
+    for bad_deltas, bad_w, match in (
+            (deltas.half(), weights, "dtype"), (deltas[:, ::2], weights, "stride"),
+            (deltas, weights.double(), "weights"), (deltas[:99], weights[:99], "rows"),
+            (deltas, weights[:50], "weights")):
+        with pytest.raises(ValueError, match=match):
+            ops.select_aggregate(rnd, 20, avail, 0.0, ui, bad_deltas, bad_w, **kw)
+    idx = torch.zeros(20, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="idx"):
+        fedavg_ops.weighted_aggregate_indexed(deltas, idx, idx.int(), weights)
+    assert (select_ops.launches, fedavg_ops.launches) == before
 
 
 @pytest.mark.cuda

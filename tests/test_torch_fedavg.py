@@ -6,6 +6,15 @@ runs) is held against the reference's Pallas kernel in interpret mode
 two sum the K rows in other orders), bf16 within 0.05 as the reference's
 own kernel test holds it. The CUDA kernel itself is held against the
 plain version on the card (`test_torch_cuda.py`).
+
+The plain version of `fedavg_indexed` (`ref.weighted_aggregate_indexed`,
+the FedAvg of K rows picked by index, what `select_aggregate` runs after
+its selection) is held against the reference's steps for the same slots
+(`src/repro/kernels/rewafl_select/ops.py` `select_aggregate`: the slots'
+weights times live, normalised by max(Σ, 1e-9), then
+`weighted_aggregate` of the rows cast to f32) within atol 1e-5 (the two
+sum the K rows in other orders), f32 and bf16 stacks, K 1, 20 and 257,
+with dead slots, all slots dead, and a padded row stride.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +24,7 @@ import torch
 from repro.kernels.fedavg import fedavg as jfedavg
 from repro.kernels.fedavg import ref as jref
 from repro_torch.kernels.fedavg import ops, ref
+from repro_torch.kernels.rewafl_select.ref import mask_from_slots
 
 
 def _stack(K, P, seed):
@@ -86,3 +96,60 @@ def test_vmap_runs_the_batched_op_equal_to_single_calls(C, K, P, weights_batched
     two = torch.func.vmap(torch.func.vmap(ops.weighted_aggregate))(
         x.unsqueeze(0).expand(2, C, K, P), wb.unsqueeze(0).expand(2, C, K))
     assert torch.equal(two[1], want)
+
+
+def _slots(S, K, case, seed):
+    """(K,) int32 idx and live flags as the selection writes them: distinct
+    live rows first, dead slots (index 0, live 0) after them."""
+    rng = np.random.RandomState(seed)
+    idx = rng.permutation(S)[:K].astype(np.int32)
+    live = np.ones(K, np.int32)
+    n_dead = {"live": 0, "padded": 0, "dead": K // 3, "all_dead": K}[case]
+    if n_dead:
+        idx[K - n_dead:], live[K - n_dead:] = 0, 0
+    return idx, live
+
+
+def _jax_indexed(x, idx, live, weights):
+    """The reference's steps after its selection, for the same slots."""
+    jidx = jnp.asarray(idx)
+    w = jnp.asarray(weights)[jidx].astype(jnp.float32) * (jnp.asarray(live) > 0)
+    wn = w / jnp.maximum(w.sum(), 1e-9)
+    return jref.weighted_aggregate(jnp.asarray(x)[jidx].astype(jnp.float32), wn)
+
+
+@pytest.mark.parametrize("case", ["live", "dead", "all_dead", "padded"])
+@pytest.mark.parametrize("K", [1, 20, 257])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_indexed_plain_matches_reference_steps(dtype, K, case):
+    S, P = 300, 37
+    rng = np.random.RandomState(K + len(case))
+    full = torch.tensor(rng.standard_normal((S, P + 3)), dtype=getattr(torch, dtype))
+    # a padded row stride: the (S, P) view of wider rows
+    x = full[:, :P] if case == "padded" else full[:, :P].contiguous()
+    weights = (rng.uniform(0, 1, S) + 0.5).astype(np.float32)
+    idx, live = _slots(S, K, case, K)
+    got = ref.weighted_aggregate_indexed(x, torch.from_numpy(idx),
+                                         torch.from_numpy(live),
+                                         torch.from_numpy(weights))
+    # bf16 values are exact in f32: both sides read the same numbers
+    want = _jax_indexed(jnp.asarray(x.float().numpy()).astype(dtype), idx, live, weights)
+    assert got.dtype == torch.float32 and got.shape == (P,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    if case == "all_dead":
+        assert not got.any()
+
+
+def test_indexed_wrapper_on_cpu_runs_plain_version_without_counting():
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.standard_normal((12, 2, 5)), dtype=torch.float32)
+    w = torch.tensor(rng.uniform(0.5, 1.5, 12), dtype=torch.float32)
+    idx, live = map(torch.from_numpy, _slots(12, 6, "dead", 3))
+    before = ops.launches, ops.indexed_launches
+    out, mask = ops.weighted_aggregate_indexed(x, idx, live, w)
+    assert (ops.launches, ops.indexed_launches) == before
+    assert out.shape == (2, 5) and out.dtype == torch.float32
+    assert torch.equal(out, ref.weighted_aggregate_indexed(x, idx, live, w))
+    assert torch.equal(mask, mask_from_slots(idx, live, 12)) and int(mask.sum()) == 4
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.weighted_aggregate_indexed(x.to("meta"), idx, live, w)

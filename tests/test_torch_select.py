@@ -13,13 +13,14 @@ CUDA kernel itself is held against the plain version on the card
 
 `select_mask`'s scores path (the oort and autofl selectors: no kernel in
 either package) is held bitwise against the reference's
-`select_mask(..., scores=)`. `select_aggregate` (the select kernel, a
-K-row gather and the fedavg kernel, composed) against the reference's
+`select_mask(..., scores=)`. `select_aggregate` (the select kernel,
+then `fedavg_indexed` on the K selected rows) against the reference's
 Pallas composition in interpret mode at ε 0 (at ε > 0 each compile of
 the interpret kernel takes ~30 s) and against its oracle
 `select_aggregate_ref` at ε 0.1: masks bitwise, the aggregate within
 atol 1e-5 (fedavg's tolerance: the K-row and dense S-row sums add in
-other orders).
+other orders). With a NaN in row 0, NaN at the same positions as the
+reference's fused pass (a dead slot reads row 0 at weight 0).
 """
 import jax
 import jax.numpy as jnp
@@ -364,6 +365,30 @@ def test_select_aggregate_matches_oracle(eps, S, k, case):
         jax.random.PRNGKey(S + k), k, eps, avail, leaves, deltas, weights, kw)
     _assert_aggregate(got, want, avail, k)
     _assert_aggregate(plain, want, avail, k)
+
+
+@pytest.mark.parametrize("case", ["random", "under_k"])
+def test_select_aggregate_nan_row_zero_matches_pallas_interpret(case):
+    """A NaN in row 0 of the deltas, device 0 unavailable: the reference's
+    fused pass reads each dead slot as row 0 at weight 0 (0 · NaN = NaN),
+    and so does the port's. NaN at the same positions (none when every
+    slot is live), the rest within atol 1e-5. (The dense plain version,
+    like the reference's dense oracle, multiplies every row: NaN wherever
+    row 0 is.)"""
+    S, P, k = 200, 48, 8
+    avail, leaves, deltas, weights = _aggregate_case(11 + len(case), S, P, case, k)
+    avail[0] = False
+    deltas[0, ::5] = np.nan
+    kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
+    (mask, agg), _, want = _select_aggregate_both(
+        jax.random.PRNGKey(3), k, 0.0, avail, leaves, deltas, weights, kw,
+        backend="pallas", interpret=True)
+    nan = np.isnan(np.asarray(want[1]))
+    assert int(nan.sum()) == (0 if case == "random" else -(-P // 5))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.isnan(agg.numpy()), nan)
+    np.testing.assert_allclose(agg.numpy()[~nan], np.asarray(want[1])[~nan],
+                               rtol=0, atol=1e-5)
 
 
 def test_select_aggregate_runs_plain_versions_on_cpu_without_counting():
