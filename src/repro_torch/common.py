@@ -9,10 +9,16 @@ def resolve_device(device="cuda") -> torch.device:
     no GPU the call raises instead of carrying on on the CPU — pass
     `device="cpu"` to ask for the CPU.
 
-    Also pins fp32 numerics: cuDNN convolutions default to TF32 on the
+    Also pins the numerics. cuDNN convolutions default to TF32 on the
     card (about three decimal digits), so both TF32 switches are turned
     off and convolutions and matmuls run in full fp32 like the JAX
-    reference."""
+    reference. cuDNN's default backward algorithms add with atomics, so
+    one FL campaign run twice on the card parted by up to 1.9e-3 in loss
+    within 6 rounds: cuDNN is pinned to its deterministic algorithms and
+    its autotuner stays off, and a run repeats bitwise (a resumed run
+    too). These are cuDNN's switches only; torch's global deterministic
+    mode stays off (it would change or refuse the card's `index_add` and
+    `scatter_reduce` and fill every `torch.empty`)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -22,6 +28,8 @@ def resolve_device(device="cuda") -> torch.device:
         raise ValueError(f"unsupported device {device!r} (use 'cuda' or 'cpu')")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev
 
 

@@ -42,6 +42,18 @@ and `health`; `transfer` around the end's history concatenation and
 telemetry drain. A first chunk that builds the kernels with nvcc is
 still called `dispatch`: the build falls inside it.
 
+`checkpoint_every=N` (with `checkpoint_dir`) saves the whole carry —
+params, `FleetState`, `EnvState`, `AsyncState`, the telemetry carry,
+the round-noise generator's state and the rounds done — at the first
+chunk boundary past each multiple of N, as `ckpt_r{round:08d}.npz`
+with a sha256 sidecar (`training.checkpoint`), under a `checkpoint`
+span. `resume` (a checkpoint file, or a directory: its newest intact
+checkpoint) loads that carry into the fresh one and goes on from its
+round, so the rest of the run is bitwise the uninterrupted run's; the
+history rows before that round are zeros and `EngineResult.start_round`
+says where it began. The environment generator draws only the initial
+`EnvState`, so the carried `env` stands for it.
+
 `run_loop` is the reference's per-round driver (`run_fl(engine="loop")`):
 one round a step, its scalars on the host after each, the early stop at
 `eval_every` granularity. `run_campaign_batch` (one method over seeds)
@@ -53,6 +65,7 @@ of them (its op's vmap rule launches the kernel over the cell axis).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -79,6 +92,7 @@ from repro_torch.obs.log import get_logger
 from repro_torch.obs.trace import span
 from repro_torch.sim.devices import DeviceFleet
 from repro_torch.sim.dynamics import EnvState, Scenario, init_env_state
+from repro_torch.training import checkpoint as ckpt
 
 log = get_logger(__name__)
 
@@ -106,6 +120,32 @@ class EngineResult:
     telemetry: Optional[Dict[str, np.ndarray]] = None
     # the fleet-health verdict (obs.health) when `health` was given
     health: Optional[HealthReport] = None
+    # the round this run started from: 0, or the resumed checkpoint's
+    # (history rows [0, start_round) were not run here and are zeros)
+    start_round: int = 0
+
+
+def _carry_payload(params, state, astate, env, tel, gen: torch.Generator,
+                   done: int) -> Dict:
+    """The whole carry as a checkpoint payload: everything round `done`
+    depends on, the round-noise generator's state in the place of the
+    reference's PRNG key (`repro.launch.engine._carry_payload`)."""
+    payload = {"params": params, "state": state, "env": env,
+               "gen": gen.get_state(), "round": torch.tensor(done, dtype=torch.int32)}
+    if astate is not None:
+        payload["astate"] = astate
+    if tel is not None:
+        payload["tel"] = tel
+    return payload
+
+
+def _metrics_like(round_fn, args, dev: torch.device) -> Dict[str, torch.Tensor]:
+    """Empty tensors on `dev` shaped as the metrics dict (the last output)
+    of `round_fn(*args)`, from one round on fake tensors (shapes without
+    data: no kernel and no op runs)."""
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        m = round_fn(*tree_map(mode.from_tensor, args))[-1]
+    return {k: torch.empty(v.shape, dtype=v.dtype, device=dev) for k, v in m.items()}
 
 
 def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
@@ -120,16 +160,25 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                async_cfg: Optional[AsyncCfg] = None,
                telemetry: TelemetryCfg = TelemetryCfg(),
                health: Optional[HealthCfg] = None,
+               checkpoint_every: Optional[int] = None,
+               checkpoint_dir: Optional[str] = None,
+               resume: Optional[str] = None,
                device="cuda") -> EngineResult:
     """Run up to `rounds` rounds in chunks of `chunk_size`, early-stopping
     on `target_acc` (needs `eval_fn`) at chunk boundaries, under
     `scenario`'s fleet dynamics from `env`, sync or (`async_cfg`) async,
     with dense or streaming `telemetry` and, given `health`, the
-    fleet-health monitors. Every tensor argument must already be on
-    `device`."""
+    fleet-health monitors; checkpointing every `checkpoint_every` rounds
+    into `checkpoint_dir`, and from the checkpoint `resume` names. Every
+    tensor argument must already be on `device`."""
     dev = resolve_device(device)
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    if checkpoint_every is not None:
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        if checkpoint_dir is None:
+            raise ValueError("checkpoint_every needs checkpoint_dir")
     for name, x in (("fleet", fleet.type_id), ("cx", cx), ("cy", cy)):
         if x.device.type != dev.type:
             raise ValueError(f"{name} is on {x.device}, the run on {dev}")
@@ -172,6 +221,29 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
     # keeps no per-device leaf (the reducers folded them)
     drop = set(PER_DEVICE_METRICS) - (set() if streaming else set(DENSE_PER_DEVICE))
     tel = None
+    start = 0
+    if resume is not None:
+        # the fresh carry is the `like` tree: a checkpoint of another
+        # configuration (model, fleet size, async or telemetry mode)
+        # fails to load. The streaming carry's shapes come from a round
+        # on fake tensors, which draws and launches nothing.
+        if streaming:
+            lead = (params, state) if astate is None else (params, state, astate)
+            n0 = draw_noise(torch.Generator(device=dev), S, cfg.n_select, H_max,
+                            cfg.batch_size, n, dyn, faults, jitter)
+            tel = init_telemetry(tcfg, _metrics_like(
+                lambda *a: body(*a, 0), lead + (env, fleet, cx, cy, n0), dev))
+        with span("resume"):
+            loaded, path = ckpt.load_latest(resume, _carry_payload(
+                params, state, astate, env, tel, gen, 0))
+        params, state, env = loaded["params"], loaded["state"], loaded["env"]
+        astate, tel = loaded.get("astate"), loaded.get("tel")
+        gen.set_state(loaded["gen"])
+        start = int(loaded["round"])
+        log.info("resumed from %s at round %d", path, start)
+        if start > rounds:
+            raise ValueError(f"checkpoint round {start} is beyond the "
+                             f"requested {rounds} rounds")
 
     host: Dict[str, List[np.ndarray]] = {}
     acc_curve: List[float] = []
@@ -180,7 +252,7 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
     health_samples: List[Dict[str, float]] = []
     health_warnings: List[str] = []
     reached = None
-    done = 0
+    done = start
     ci = 0
     while done < rounds:
         length = min(chunk_size, rounds - done)
@@ -206,6 +278,15 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                         torch.stack([m[k] for m in ms]).cpu().numpy())
             done += length
             chunk_len.append(length)
+            if (checkpoint_every is not None
+                    and done // checkpoint_every > (done - length) // checkpoint_every):
+                # the boundary past a multiple: the copies to the host
+                # wait for the chunk
+                with span("checkpoint", ci, round=done):
+                    path = os.path.join(checkpoint_dir, f"ckpt_r{done:08d}.npz")
+                    ckpt.save_checkpoint(path, _carry_payload(
+                        params, state, astate, env, tel, gen, done))
+                    log.info("checkpoint written: %s", path)
             stop = False
             if eval_fn is not None:
                 with span("eval", ci):
@@ -228,6 +309,9 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
     t0 = time.time()
     with span("transfer"):
         history = {k: np.concatenate(v) for k, v in host.items()}
+        if start:   # rows the checkpointing process ran: zeros, as in the reference
+            history = {k: np.concatenate([np.zeros((start,) + v.shape[1:], v.dtype), v])
+                       for k, v in history.items()}
         telemetry_out = None
         if tel is not None:          # one O(S) drain for the whole run
             telemetry_out = {k: v.cpu().numpy()
@@ -246,7 +330,7 @@ def run_rounds(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
                         chunk_wall_s=np.asarray(chunk_wall, np.float64),
                         chunk_rounds=np.asarray(chunk_len, np.int64),
                         env=env, async_state=astate,
-                        telemetry=telemetry_out, health=report)
+                        telemetry=telemetry_out, health=report, start_round=start)
 
 
 def run_loop(model: FLModel, fleet: DeviceFleet, cx: torch.Tensor,
@@ -438,18 +522,14 @@ def _run_cells(body, *, mp, params, state, astate, env, fleet, cx, cy,
             # every key with a zero-length round axis: the metrics' shapes
             # from one round of the body on fake tensors (shapes without
             # data: no kernel and no op runs)
-            n0 = noise(0)
-            with FakeTensorMode(allow_non_fake_inputs=True) as mode:
-                fake = lambda t: tree_map(mode.from_tensor, t)  # noqa: E731
-                m = vround(0, fake(mp), fake(params), fake(state), fake(astate),
-                           fake(env), fake(fleet), fake(cx), fake(cy), fake(n0))[-1]
+            m = _metrics_like(lambda *a: vround(0, *a), (
+                mp, params, state, astate, env, fleet, cx, cy, noise(0)), dev)
             history = {k: np.zeros((C, 0) + tuple(v.shape[1:]),
                                    torch.empty((), dtype=v.dtype).numpy().dtype)
                        for k, v in m.items() if k not in drop}
             if streaming:
-                tel = replicate_state(init_telemetry(tcfg, {
-                    k: torch.empty(v.shape[1:], dtype=v.dtype, device=dev)
-                    for k, v in m.items()}), C)
+                tel = replicate_state(init_telemetry(tcfg, {k: v[0] for k, v in m.items()}),
+                                      C)
         if streaming:                # one O(S) drain for the whole run
             history.update({k: v.cpu().numpy()
                             for k, v in finalize_telemetry(tcfg, tel).items()})

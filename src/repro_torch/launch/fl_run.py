@@ -13,7 +13,8 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.fl_run \
           [--scenario flaky-fleet] [--probe-every 2] \
           [--aggregation async --buffer-m 10 --async-delay wall] \
           [--telemetry streaming] [--health | --health-strict] \
-          [--trace out.trace.json]
+          [--trace out.trace.json] \
+          [--checkpoint-every 2 --checkpoint-dir ckpts] [--resume ckpts]
 (`--device cpu` runs on the CPU; without a GPU the default raises.)
 
 Observability (`repro_torch.obs`): `--trace PATH` records the engine's
@@ -23,6 +24,12 @@ fleet-health monitors (flat batteries, near-depletion, selection Gini,
 staleness tails) at chunk boundaries and `--health-strict` turns a
 tripped threshold into exit code 3. Progress chatter goes through the
 `repro_torch` logger (`--quiet` / `-v`); the final JSON stays on stdout.
+
+Checkpoints (`training.checkpoint`): `--checkpoint-every N
+--checkpoint-dir DIR` saves the engine's whole carry every N rounds;
+`--resume DIR` (or one checkpoint file) goes on from the newest intact
+one, bitwise the uninterrupted run. The JSON's `carry_sha` (the final
+carry's digest) and `start_round` show it.
 """
 from __future__ import annotations
 
@@ -53,6 +60,7 @@ from repro_torch.obs.log import configure_logging, get_logger
 from repro_torch.obs.trace import Tracer, format_span_table, tracing
 from repro_torch.sim.devices import build_fleet
 from repro_torch.sim.dynamics import SCENARIOS, get_scenario, init_env_state
+from repro_torch.training.checkpoint import tree_digest
 
 log = get_logger(__name__)
 
@@ -84,6 +92,11 @@ class RunResult:
     # span aggregates ({name: {count, total_s, mean_s, max_s}}) when
     # run_fl(trace=...) recorded the run's engine phases
     spans: Optional[Dict[str, Dict[str, float]]] = None
+    # checkpointing or resuming only: the digest of the final params,
+    # FleetState, EnvState (and AsyncState), `training.checkpoint.
+    # tree_digest` as the reference takes it
+    carry_sha: Optional[str] = None
+    start_round: int = 0               # the resumed checkpoint's round, or 0
 
 
 def build_task(task: str, n_clients: int, lam: float, *, per_client: int = 128,
@@ -216,9 +229,14 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     streaming telemetry, health or checkpoints (ValueError). Same seeds,
     so its rounds are the chunked engine's.
 
-    Not ported, raising NotImplementedError: `checkpoint_every`,
-    `checkpoint_dir` and `resume` (ROADMAP A14), and `fleet_shards`
-    above 1 (A16)."""
+    `checkpoint_every=N` with `checkpoint_dir` saves the engine's whole
+    carry every N rounds (`launch.engine.run_rounds`); `resume` (a
+    checkpoint file or directory) goes on from the newest intact one, and
+    the rest of the run is bitwise the uninterrupted run's. Either sets
+    `RunResult.carry_sha`; `start_round` is the resumed round.
+
+    Not ported, raising NotImplementedError: `fleet_shards` above 1
+    (ROADMAP A16)."""
     if trace is not None:
         kw = dict(locals())
         kw.pop("trace")
@@ -250,16 +268,9 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         if telemetry != "dense":
             raise ValueError("telemetry='streaming' needs engine='scan' — the "
                              "legacy loop driver has no on-device reducers")
-    # the reference's options the port does not have yet, each with the
-    # ROADMAP item that brings it
-    for name, val, on, item in (
-            ("checkpoint_dir", checkpoint_dir, checkpoint_dir is not None, "A14"),
-            ("resume", resume, resume is not None, "A14"),
-            ("checkpoint_every", checkpoint_every, checkpoint_every is not None, "A14"),
-            ("fleet_shards", fleet_shards, (fleet_shards or 1) > 1, "A16")):
-        if on:
-            raise NotImplementedError(f"{name}={val!r} is not ported yet "
-                                      f"(ROADMAP {item})")
+    if (fleet_shards or 1) > 1:   # the ROADMAP item that brings it
+        raise NotImplementedError(f"fleet_shards={fleet_shards!r} is not ported "
+                                  "yet (ROADMAP A16)")
     scen = get_scenario(scenario)
     dev = resolve_device(device)
     model = make_fl_model(task, small=small)
@@ -303,7 +314,15 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
     else:
         res = run_rounds(model, fleet, cx, cy, cfg, METHODS[method],
                          chunk_size=max(1, min(chunk_size, eval_every)),
-                         async_cfg=acfg, telemetry=tcfg, health=health, **kw)
+                         async_cfg=acfg, telemetry=tcfg, health=health,
+                         checkpoint_every=checkpoint_every,
+                         checkpoint_dir=checkpoint_dir, resume=resume, **kw)
+    carry_sha = None
+    if checkpoint_every is not None or resume is not None:
+        carry = {"params": res.params, "state": res.state, "env": res.env}
+        if res.async_state is not None:
+            carry["astate"] = res.async_state
+        carry_sha = tree_digest(carry)
     h = res.history
     if verbose and engine == "scan":
         ends = np.cumsum(res.chunk_rounds) - 1
@@ -340,18 +359,18 @@ def run_fl(task: str = "cnn@mnist", method: str = "rewafl", *,
         overall_latency_s=float(np.sum(h.get("round_latency", empty))),
         overall_energy_j=float(np.sum(h.get("round_energy", empty))),
         dropout_ratio=(float(h["n_dropped"][-1]) / n_clients
-                       if res.rounds_run else 0.0),
+                       if len(h.get("n_dropped", empty)) else 0.0),
         acc_curve=res.acc_curve, final_params=res.params,
         chunk_wall_s=res.chunk_wall_s, chunk_rounds=res.chunk_rounds,
         wall_clock_s=(float(h["wall_clock"][-1])
-                      if acfg is not None and res.rounds_run else None),
-        async_state=res.async_state, telemetry=res.telemetry, health=res.health)
+                      if acfg is not None and len(h.get("wall_clock", empty)) else None),
+        async_state=res.async_state, telemetry=res.telemetry, health=res.health,
+        carry_sha=carry_sha, start_round=res.start_round)
 
 
 def summary(res: RunResult, *, scenario: str, telemetry: str,
             aggregation: str, wall_s: float) -> dict:
-    """The CLI's stdout JSON — the reference's keys; those of the option
-    the port does not have (checkpoints) report None or 0."""
+    """The CLI's stdout JSON, the reference's keys."""
     return {
         "task": res.task, "method": res.method,
         "scenario": scenario, "telemetry": telemetry,
@@ -365,7 +384,7 @@ def summary(res: RunResult, *, scenario: str, telemetry: str,
         "health_ok": res.health.ok if res.health is not None else None,
         "fault_totals": {k: float(np.sum(res.history[k]))
                          for k in FAULT_HIST_KEYS if k in res.history},
-        "carry_sha": None, "start_round": 0,
+        "carry_sha": res.carry_sha, "start_round": res.start_round,
         "wall_s": round(wall_s, 1),
     }
 
@@ -386,8 +405,16 @@ def main(argv=None) -> None:
                     help="'scan': the chunked engine; 'loop': the per-round "
                          "driver (sync, dense telemetry, no health)")
     ap.add_argument("--chunk-size", type=int, default=8)
+    ap.add_argument("--checkpoint-every", type=int, default=None, metavar="N",
+                    help="save the engine's whole carry every N completed "
+                         "rounds (needs --checkpoint-dir; chunked engine only)")
     ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
-                    help="checkpoint directory (not ported yet: ROADMAP A14)")
+                    help="directory for ckpt_r*.npz checkpoints (+ sha256 "
+                         "sidecars)")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="resume bitwise from a checkpoint file, or from the "
+                         "newest intact checkpoint in a directory (corrupt "
+                         "files are skipped)")
     ap.add_argument("--scenario", default="static-paper",
                     choices=sorted(SCENARIOS),
                     help="fleet dynamics; lossy-uplink and flaky-fleet "
@@ -453,7 +480,8 @@ def main(argv=None) -> None:
                  target_acc=args.target_acc, alpha=args.alpha,
                  beta=args.beta, seed=args.seed, small=not args.full_width,
                  verbose=not args.quiet, engine=args.engine,
-                 chunk_size=args.chunk_size, checkpoint_dir=args.checkpoint_dir,
+                 chunk_size=args.chunk_size, checkpoint_every=args.checkpoint_every,
+                 checkpoint_dir=args.checkpoint_dir, resume=args.resume,
                  scenario=args.scenario, probe_every=args.probe_every,
                  aggregation=args.aggregation, buffer_m=args.buffer_m,
                  staleness_power=args.staleness_power,

@@ -24,6 +24,7 @@ package.
 import ast
 import dataclasses
 import json
+import os
 import pathlib
 
 import jax
@@ -167,6 +168,26 @@ def test_cli_json_summary(capsys):
     assert out["scenario"] == "static-paper" and out["aggregation"] == "sync"
 
 
+def test_cli_checkpoint_and_resume(capsys, tmp_path):
+    """`--checkpoint-every 2 --checkpoint-dir D` for 2 rounds, then
+    `--resume D` to 4: the JSON shows the resumed round and the carry
+    digest of the uninterrupted 4-round run."""
+    base = ["--device", "cpu", "--clients", "6", "--select", "2", "--chunk-size", "2",
+            "--target-acc", "2", "--quiet"]
+
+    def cli(*extra):
+        fl_run.main(base + list(extra))
+        return json.loads(capsys.readouterr().out)
+
+    full = cli("--rounds", "4", "--checkpoint-every", "2", "--checkpoint-dir",
+               str(tmp_path / "full"))
+    cli("--rounds", "2", "--checkpoint-every", "2", "--checkpoint-dir", str(tmp_path / "d"))
+    resumed = cli("--rounds", "4", "--resume", str(tmp_path / "d"))
+    assert (full["start_round"], resumed["start_round"]) == (0, 2)
+    assert resumed["rounds"] == full["rounds"] == 4
+    assert resumed["carry_sha"] == full["carry_sha"] and len(full["carry_sha"]) == 64
+
+
 @pytest.mark.parametrize("task,method", [("cnn@har", "oort"), ("lstm@shakespeare", "autofl"),
                                          ("cnn@cifar10", "random")])
 def test_cli_runs_each_task_and_method(capsys, task, method):
@@ -185,18 +206,15 @@ def test_run_fl_default_device_raises_without_a_gpu():
 
 
 # the ROADMAP item that brings each option the port does not have yet
-UNPORTED_ITEM = {"resume": "A14", "checkpoint_dir": "A14",
-                 "checkpoint_every": "A14", "fleet_shards": "A16"}
+UNPORTED_ITEM = {"fleet_shards": "A16"}
 
 
-@pytest.mark.parametrize("kw", [dict(resume="ckpts"),
-                                dict(checkpoint_dir="ckpts"),
-                                dict(checkpoint_every=2),
-                                dict(fleet_shards=2)])
+@pytest.mark.parametrize("kw", [dict(fleet_shards=2), dict(fleet_shards=3),
+                                dict(fleet_shards=4), dict(fleet_shards=8)])
 def test_unported_options_raise(kw):
     """Options of the reference's `run_fl` that the port does not have
-    yet raise, naming the ROADMAP item that brings them: resuming and
-    writing checkpoints (A14), fleet sharding (A16)."""
+    yet raise, naming the ROADMAP item that brings them: fleet sharding
+    over any number of shards above 1 (A16)."""
     args = dict(rounds=1, n_clients=4, n_select=2, device="cpu") | kw
     item = UNPORTED_ITEM[next(iter(kw))]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -209,17 +227,36 @@ def test_unported_options_raise(kw):
                                 dict(telemetry="streaming"),
                                 dict(trace="t.json"),
                                 dict(health=HealthCfg()),
-                                dict(engine="loop")])
+                                dict(engine="loop"),
+                                dict(resume="ckpts"),
+                                dict(checkpoint_dir="ckpts"),
+                                dict(checkpoint_every=1)])
 def test_formerly_unported_options_run(kw, tmp_path):
     """The fault scenarios (ROADMAP A11), async aggregation (A10),
-    streaming telemetry, the trace and the health monitors (A12) and the
-    per-round `loop` engine (A13), which raised or were missing until
-    they were ported, run one CPU round."""
+    streaming telemetry, the trace and the health monitors (A12), the
+    per-round `loop` engine (A13) and checkpoints and resume (A14), which
+    raised or were missing until they were ported, run one CPU round."""
+    args = dict(n_clients=4, n_select=2, device="cpu")
     if "trace" in kw:
         kw = dict(trace=str(tmp_path / kw["trace"]))
-    res = run_fl(rounds=1, n_clients=4, n_select=2, device="cpu", **kw)
-    assert res.rounds_run == 1 and np.isfinite(res.history["global_loss"]).all()
-    if "scenario" in kw:
+    if "checkpoint_dir" in kw or "checkpoint_every" in kw:
+        kw = dict(kw, checkpoint_dir=str(tmp_path / "ckpts"))
+    start = 0
+    if "resume" in kw:   # one run checkpoints after round 0, the next runs round 1
+        run_fl(rounds=1, checkpoint_every=1, checkpoint_dir=str(tmp_path / "ckpts"), **args)
+        kw, start = dict(resume=str(tmp_path / "ckpts")), 1
+    res = run_fl(rounds=start + 1, **args, **kw)
+    assert res.rounds_run == start + 1 and np.isfinite(res.history["global_loss"]).all()
+    if "resume" in kw:
+        assert res.start_round == 1 and res.carry_sha is not None
+        assert res.history["global_loss"].shape == (2,) and res.history["global_loss"][0] == 0
+    elif "checkpoint_every" in kw:
+        assert res.carry_sha is not None and res.start_round == 0
+        assert sorted(os.listdir(kw["checkpoint_dir"])) == ["ckpt_r00000001.npz",
+                                                            "ckpt_r00000001.npz.sha256"]
+    elif "checkpoint_dir" in kw:   # a directory alone writes nothing, as in the reference
+        assert res.carry_sha is None and not os.path.exists(kw["checkpoint_dir"])
+    elif "scenario" in kw:
         assert "n_lost" in res.history
     elif "aggregation" in kw:
         assert res.wall_clock_s is not None and res.wall_clock_s > 0
