@@ -28,8 +28,9 @@ Phases, in order; any failure exits non-zero:
 5. flash_attention against its plain version: llama heads (H 24, n_kv 8,
    hd 128) causal at S in {17, 128, 2048}, gemma2 heads (H 32, n_kv 16)
    with window 64 and softcap 50 and as a global layer, granite's MQA,
-   non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key, and
-   bf16 at hd 64 with ragged Sq and Sk; f32 within atol 1e-5 (the sum order
+   non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key,
+   bf16 at hd 64 with ragged Sq and Sk, and olmoe-1b-7b's prefill layer
+   (B 4, S 2048, H 16, n_kv 16: GQA group 1); f32 within atol 1e-5 (the sum order
    differs), bf16 within one bf16 step (rtol 2**-7, atol 1e-5); bf16 runs
    the tensor-core kernel, f32 the CUDA-core one (counted); slstm against its plain version at B in
    {1, 4}, T in {1, 17, 2048}, (NH, hd) in {(4, 64), (4, 512)}, f32 and
@@ -54,8 +55,9 @@ Phases, in order; any failure exits non-zero:
    the same timer (`zero_()` on one element, `launch_floor_ms`); for
    slstm also the floor of its 2,048 sequential steps, the exchange of h
    between a cluster's blocks alone on the same clusters; rewafl_select
-   at S 100 and 1e6, stat_util at S 1e6, and fedavg at the async land's
-   (30, 206,922);
+   at S 100 and 1e6, stat_util at S 1e6, fedavg at the async land's
+   (30, 206,922), and flash_attention at olmoe-1b-7b's prefill layer
+   beside SDPA;
    then the campaigns' batched calls (each kernel's op under
    `torch.func.vmap`, one launch a call): fedavg at (18, 20, 206,922)
    and (18, 40, 206,922) f32 with a NaN row at weight 0, within atol 1e-5
@@ -157,14 +159,25 @@ Phases, in order; any failure exits non-zero:
    one warm-up call, with every kernel's launch count read just after,
    then served again for the median and spread of its times:
    llama3.2-3b (28 layers, d 3072; flash_attention's tensor-core kernel
-   once per layer, 5 serves) and xlstm-1.3b (48 layers, d 2048; slstm's
-   cluster kernel once per sLSTM layer, 6, 3 serves); then reduced
+   once per layer, 5 serves), xlstm-1.3b (48 layers, d 2048; slstm's
+   cluster kernel once per sLSTM layer, 6, 3 serves) and olmoe-1b-7b (16
+   MoE layers, d 2048, 64 experts, top 8, the dense oracle;
+   flash_attention's tensor-core kernel once per layer, 16, 4 serves),
+   with each serve's peak memory; kimi-k2-1t-a32b at full width is not
+   attempted (one line: its parameters and the bytes its bf16 weights
+   need against the card's memory); then reduced
    llama3.2-3b, gemma2-27b and xlstm-1.3b (at batch 2, and xlstm-1.3b at
    batch 17 too: two slstm launches a layer) served on the card and on the
    CPU from the same weights, f32 and bf16: greedy ids equal, last logits
    within 5e-4 of their scale with f32 weights and 3e-2 with bf16 weights
    (f32 weights run the CUDA-core flash kernel and the cooperative slstm
-   kernel, bf16 the tensor-core ones);
+   kernel, bf16 the tensor-core ones); and reduced olmoe-1b-7b and
+   kimi-k2-1t-a32b at batch 2, f32 and bf16, on the card and on the CPU
+   under the flip rule (`tests/moe_flip_rule.py`: a token that chose other
+   experts with no earlier flip upstream of it lies within 5e-4 (f32) or
+   2**-5 (bf16) of a tie on the CPU's side; router inputs, ids and last
+   logits that no flip reached within 5e-4 / 3e-2 of their scale), with
+   each one's flip count and the largest gap among flips printed;
 9. a JSON line of `select_aggregate`'s check and times, one of the
    grid's and the seed batch's ms/round beside their singles', one of
    kernels (each FL kernel with its batched call's check and times),
@@ -203,6 +216,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.append(os.path.join(ROOT, "tests"))   # the flip rule the card's moe tests use
+
+from moe_flip_rule import CARD_GAP_BOUND, check_served, record_port_routes  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound: HBM3 rate,
 # fp32 outside the tensor cores (rewafl_select and fedavg do f32 FMAs),
@@ -555,8 +571,11 @@ FLASH_CASES = [
      torch.bfloat16),
     ("every row masked (causal, window 0) S=130 hd 64 bf16", 1, 130, 130, 4, 2, 64, True, 0,
      None, torch.bfloat16),
+    ("olmoe causal S=2048 H 16 n_kv 16 bf16 (moe serving path)", 4, 2048, 2048, 16, 16,
+     128, True, None, None, torch.bfloat16),
 ]
 MAIN_FLASH = dict(B=4, S=2048, H=24, n_kv=8, hd=128)   # llama3.2-3b prefill
+OLMOE_FLASH = dict(B=4, S=2048, H=16, n_kv=16, hd=128)  # olmoe-1b-7b prefill (group 1)
 FLASH_F32_ATOL = 1e-5        # the sum order differs
 FLASH_BF16_RTOL = 2.0 ** -7  # both round one f32 result to bf16: one step apart
 
@@ -600,13 +619,13 @@ def phase_flash(dev) -> float:
     return main_err
 
 
-def time_flash(dev) -> dict:
-    """Times at the main path's call: one llama3.2-3b prefill layer, B 4,
-    S 2048, bf16, causal."""
+def time_flash(dev, shape: dict = MAIN_FLASH) -> dict:
+    """Times at one prefill layer's call, bf16, causal: the main path's
+    (llama3.2-3b, B 4, S 2048) unless `shape` names another."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, H, n_kv, hd = (MAIN_FLASH[k] for k in ("B", "S", "H", "n_kv", "hd"))
+    B, S, H, n_kv, hd = (shape[k] for k in ("B", "S", "H", "n_kv", "hd"))
     q, k, v = flash_inputs(B, S, S, H, n_kv, hd, torch.bfloat16, 7, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # views, (B, heads, S, hd)
     # each input read once, the output written once; 4·hd flops for each
@@ -2223,7 +2242,7 @@ def phase_select_aggregate(dev) -> dict:
 
 SERVE_B, SERVE_S, SERVE_TOKENS = 4, 2048, 32
 # timed serves of each serving path (the first also counts the launches)
-SERVE_REPEATS = {"llama3.2-3b": 5, "xlstm-1.3b": 3}
+SERVE_REPEATS = {"llama3.2-3b": 5, "xlstm-1.3b": 3, "olmoe-1b-7b": 4}
 
 
 def prefill_launches(cfg, batch: int) -> dict:
@@ -2311,17 +2330,27 @@ def phase_serve(dev, arch: str, cfg, params):
 # every layer rounds to bf16 (up to 1.4e-2 there)
 SERVE_AGREE_REL = {"float32": 5e-4, "bfloat16": 3e-2}
 # (arch, prompt length, batch): xlstm's prompt is one mLSTM chunk of 64;
-# at batch 17 each sLSTM layer runs two slstm launches
+# at batch 17 each sLSTM layer runs two slstm launches; the reduced moe
+# family: olmoe-1b-7b (2 MoE layers of 4 experts, top 2) and
+# kimi-k2-1t-a32b (a dense prefix layer, then a MoE layer with a shared
+# expert)
 AGREE_ARCHS = [("llama3.2-3b", 40, 2), ("gemma2-27b", 40, 2), ("xlstm-1.3b", 64, 2),
-               ("xlstm-1.3b", 64, 17)]
+               ("xlstm-1.3b", 64, 17), ("olmoe-1b-7b", 40, 2), ("kimi-k2-1t-a32b", 40, 2)]
 
 
 def phase_serve_agreement(dev) -> None:
     """Reduced llama3.2-3b, gemma2-27b (hd 64; gemma2 with windows and
-    softcaps) and xlstm-1.3b (8 layers, 4 sLSTM of hd 64; at batch 2 and
-    17), with f32 and with bf16 weights, served on the card and on the CPU
-    from the same weights: greedy ids equal, last logits within
-    SERVE_AGREE_REL of their scale."""
+    softcaps), xlstm-1.3b (8 layers, 4 sLSTM of hd 64; at batch 2 and 17),
+    olmoe-1b-7b and kimi-k2-1t-a32b, with f32 and with bf16 weights,
+    served on the card and on the CPU from the same weights: greedy ids
+    equal, last logits within SERVE_AGREE_REL of their scale. The moe
+    family is held under the flip rule (`tests/moe_flip_rule.py`) instead:
+    a first-order flip (a token choosing other experts with no earlier
+    flip upstream of it) within CARD_GAP_BOUND of a tie on the CPU's side;
+    router inputs, greedy ids and last logits that no flip reached within
+    CARD_STATE_REL of their scale (ids equal); the flip count and the
+    largest gap among flips printed."""
+    import contextlib
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2333,9 +2362,13 @@ def phase_serve_agreement(dev) -> None:
             params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
             kw = dict(reduced=True, param_dtype=dt, batch=batch, prompt_len=prompt_len,
                       tokens=8, seed=5)
-            cpu = serve(arch, device="cpu", params=params, **kw)
+            moe = cfg.family == "moe"
+            record = record_port_routes if moe else contextlib.nullcontext
+            with record() as cpu_log:
+                cpu = serve(arch, device="cpu", params=params, **kw)
             tc0 = read_tc_launches()
-            card = serve(arch, device=dev, params=_to(params, dev), **kw)
+            with record() as card_log:
+                card = serve(arch, device=dev, params=_to(params, dev), **kw)
             tc = {k: v - tc0[k] for k, v in read_tc_launches().items()}
             name = f"{arch} reduced {dt} batch {batch}"
             want = prefill_launches(cfg, batch)
@@ -2346,6 +2379,9 @@ def phase_serve_agreement(dev) -> None:
             tc_want = {"flash_attention": card.flash_launches if bf16 else 0,
                        "slstm": card.slstm_launches if bf16 else 0}
             check(tc == tc_want, f"{name}: tensor-core launches {tc}, not {tc_want}")
+            if moe:
+                check_moe_served(cfg, card, cpu, card_log, cpu_log, dt, name)
+                continue
             check(torch.equal(cpu.ids, card.ids),
                   f"{name}: greedy ids differ: {cpu.ids.tolist()} vs {card.ids.tolist()}")
             scale = cpu.last_logits.abs().max().item()
@@ -2355,6 +2391,35 @@ def phase_serve_agreement(dev) -> None:
             print(f"serve agreement {name}: ids equal over {kw['tokens']} steps, "
                   f"last logits within {err / scale:.3g} of scale {scale:.3g} "
                   f"(limit {rel})", flush=True)
+
+
+def check_moe_served(cfg, card, cpu, card_log, cpu_log, dt: str, name: str) -> None:
+    """A moe serve on the card held to the CPU's under the flip rule."""
+    try:
+        r = check_served(card, cpu, card_log, cpu_log, dtype=dt, name=name,
+                         n_moe=cfg.n_layers - cfg.moe.n_dense_prefix)
+    except AssertionError as e:
+        fail(f"moe agreement: {e}")
+    gaps = [f.gap for f in r.flips]
+    print(f"moe agreement {name}: {len(r.flips)} flips "
+          f"({sum(f.first_order for f in r.flips)} first-order), largest gap "
+          f"among flips {max(gaps, default=0.0):.3g} (bound {CARD_GAP_BOUND[dt]:.3g} "
+          f"for first-order); router inputs no flip reached within "
+          f"{r.max_state_err:.3g} of scale, last logits of the rows no flip "
+          f"reached within {r.logit_err:.3g}", flush=True)
+    for line in r.lines(name)[1:]:
+        print(f"moe agreement {line}", flush=True)
+
+
+def moe_full_width_note(smi: str) -> None:
+    """kimi-k2-1t-a32b at its published widths is not served: its bf16
+    weights alone exceed the card's memory."""
+    from repro_torch.configs import get_config, param_count
+    n = param_count(get_config("kimi-k2-1t-a32b"))
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"serve: kimi-k2-1t-a32b at full width not attempted: {n:,} parameters, "
+          f"{2 * n / 1e9:,.1f} GB of bf16 weights against the card's "
+          f"{total / 1e9:.1f} GB ({smi}); served reduced only", flush=True)
 
 
 def _to(tree, dev):
@@ -2521,6 +2586,10 @@ def main() -> None:
     # the async land's aggregate: the whole (buffer_m + K, P) delta buffer
     times["fedavg"]["async_land"] = land = time_fedavg(dev, ASYNC_SLOTS)
     land.update(shape=f"K {ASYNC_SLOTS}, P {FEDAVG_P} f32", launch_floor_ms=floor_ms)
+    # flash_attention at olmoe-1b-7b's prefill layer (H 16, n_kv 16: GQA group 1)
+    times["flash_attention"]["olmoe_prefill"] = olmoe_flash = time_flash(dev, OLMOE_FLASH)
+    olmoe_flash.update(shape="B 4, S 2048, H 16, n_kv 16, hd 128 bf16 causal",
+                       launch_floor_ms=floor_ms)
     for k, v in time_batched(dev).items():   # the campaigns' batched calls
         v.update(launch_floor_ms=floor_ms, max_abs_err=batched_err[k])
         times[k]["batched"] = v
@@ -2528,6 +2597,7 @@ def main() -> None:
                                         v["batched"]) for k, v in times.items()
                                        if "batched" in v] + [
             (f"fedavg K={ASYNC_SLOTS} (async land)", land),
+            ("flash_attention olmoe-1b-7b prefill (H 16, n_kv 16)", olmoe_flash),
             ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
             ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
         extra = (f", padded rows {v['padded_ms']:.5f} ms" if "padded_ms" in v else
@@ -2589,16 +2659,21 @@ def main() -> None:
         # ~88,000 kernels a round: 2 rounds keep the trace's processing short
         phase_profile(dev, "lstm@shakespeare", "rewafl", rounds=2)
         phase_profile_grid(dev)
-    tc_counts = {}
-    for arch in SERVE_REPEATS:   # the serving paths: flash_attention, slstm
+    # the serving paths: flash_attention (llama3.2-3b's count is the one
+    # reported as `launches`), slstm, each path's in `launches_by_path`
+    tc_counts, serve_paths = {}, {}
+    for arch in SERVE_REPEATS:
         cfg, params = serve_params(dev, arch)
         serve_counts, serve_tc, serve_out = phase_serve(dev, arch, cfg, params)
-        counts.update({k: serve_counts[k] for k in prefill_launches(cfg, SERVE_B)})
-        tc_counts.update({k: serve_tc[k] for k in prefill_launches(cfg, SERVE_B)})
+        for k in prefill_launches(cfg, SERVE_B):
+            counts.setdefault(k, serve_counts[k])
+            tc_counts.setdefault(k, serve_tc[k])
+            serve_paths.setdefault(k, {})[arch] = serve_counts[k]
         if profile:
             phase_profile_serve(dev, arch, params, serve_out)
         del params
         torch.cuda.empty_cache()
+    moe_full_width_note(smi)
     phase_serve_agreement(dev)
 
     meta = {
@@ -2620,7 +2695,8 @@ def main() -> None:
                     launches=counts[k], max_abs_err=err, **times[k], check=chk,
                     **({"tc_launches": tc_counts[k]} if k in TC_KERNELS else {}),
                     **({"launches_by_path": {p: c[k] for p, c in chaos_counts.items()}}
-                       if k in ("rewafl_select", "fedavg", "stat_util") else {}))
+                       if k in ("rewafl_select", "fedavg", "stat_util") else {}),
+                    **({"launches_by_path": serve_paths[k]} if k in serve_paths else {}))
                for k, (src, rep, err, chk) in meta.items()]
     # fedavg_indexed: on select_aggregate's path, timed alone on its slots
     ix = next(iter(agg["rows"].values()))   # the first timed row, the main one

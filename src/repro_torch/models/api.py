@@ -19,7 +19,6 @@ class ModelAPI:
 
 
 _NOT_PORTED = {
-    "moe": "the moe family (olmoe, kimi-k2) waits for nn/moe (ROADMAP A16)",
     "hybrid": "the hybrid family (zamba2) waits for nn/ssm (ROADMAP A16)",
     "audio": "the audio family (whisper) waits for models/whisper (ROADMAP A16)",
 }
@@ -30,6 +29,9 @@ def get_model_api(cfg: ArchCfg) -> ModelAPI:
     if fam in ("dense", "vlm"):
         return ModelAPI(lm.dense_init, lm.dense_loss, lm.dense_prefill,
                         lm.dense_decode_step, lm.dense_init_decode_state)
+    if fam == "moe":
+        return ModelAPI(lm.moe_init, lm.moe_loss, lm.moe_prefill,
+                        lm.moe_decode_step, lm.moe_init_decode_state)
     if fam == "ssm":
         return ModelAPI(lm.xlstm_init, lm.xlstm_loss, lm.xlstm_prefill,
                         lm.xlstm_decode_step, lm.xlstm_init_decode_state)

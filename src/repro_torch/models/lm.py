@@ -1,6 +1,6 @@
 """Decoder language models for serving: the dense family (llama /
-deepseek / granite / gemma2), the vlm family's language tower, and the
-ssm family (xlstm).
+deepseek / granite / gemma2), the vlm family's language tower, the moe
+family (olmoe / kimi-k2) and the ssm family (xlstm).
 
 Per-family API (see ``repro_torch.models.api``), the reference's without
 its sharding argument:
@@ -11,9 +11,10 @@ its sharding argument:
 
 Decode-state convention: a "KV cache of seq_len" holds seq_len−1 prior
 tokens; decode_step writes token seq_len−1 (0-based) and attends the full
-seq_len context. The dense state is a ring cache of KV slots, the xlstm
-state the recurrent states of every layer; decode_step writes either in
-place and returns it.
+seq_len context. The dense state is a ring cache of KV slots, the moe
+state a dict of them (one for the MoE stack, one for a dense prefix
+stack), the xlstm state the recurrent states of every layer; decode_step
+writes each in place and returns it.
 """
 from __future__ import annotations
 
@@ -104,6 +105,81 @@ def dense_decode_step(params, batch, state, cfg: ArchCfg):
                                windows=tf.layer_windows(cfg, cfg.n_layers))
     x = layers.rmsnorm(params["final_ln"], x, scale_plus_one=cfg.embed_scale)
     return _final_logits(x, params, cfg), state
+
+
+# ============================================================ moe family
+#
+# A stack of MoE blocks ("moe_stack"), after a stack of dense blocks
+# ("prefix_stack", kimi-k2's first layer) where the config has one.
+
+def moe_init(gen: torch.Generator, cfg: ArchCfg):
+    """Random parameters drawn from `gen` on its device, in the
+    reference's tree (the routers f32 whatever the model's dtype)."""
+    dt = _dtype(cfg)
+    m = cfg.moe
+    p = {
+        "embed": layers.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt),
+        "moe_stack": tf.stack_init(gen, cfg, cfg.n_layers - m.n_dense_prefix,
+                                   use_moe=True, dtype=dt),
+        "final_ln": layers.rmsnorm_init(gen, cfg.d_model, dt),
+    }
+    if m.n_dense_prefix:
+        p["prefix_stack"] = tf.stack_init(gen, cfg, m.n_dense_prefix,
+                                          use_moe=False, dtype=dt)
+    return p
+
+
+def moe_loss(params, batch, cfg: ArchCfg):
+    raise NotImplementedError("moe training (moe_loss, chunked_ce and the "
+                              "router's auxiliaries) waits for the training "
+                              "slice (ROADMAP A16)")
+
+
+def moe_prefill(params, batch, cfg: ArchCfg):
+    """Prefill the prompt. Returns the last position's logits (B, 1, V) and
+    {"prefix": the dense prefix's caches or None, "moe": the MoE stack's},
+    bf16 ring caches of S slots."""
+    x = _embed(params, batch["tokens"], cfg)
+    pre_caches = None
+    if "prefix_stack" in params:
+        x, pre_caches = tf.stack_prefill(params["prefix_stack"], x, cfg,
+                                         use_moe=False, windows=None)
+    x, caches = tf.stack_prefill(params["moe_stack"], x, cfg, use_moe=True,
+                                 windows=None)
+    x = layers.rmsnorm(params["final_ln"], x[:, -1:, :])
+    return _final_logits(x, params, cfg), {"prefix": pre_caches, "moe": caches}
+
+
+def moe_init_decode_state(cfg: ArchCfg, batch: int, kv_len: int, *,
+                          device="cuda"):
+    """Empty stacked ring caches of kv_len slots in the model's dtype, with
+    kv_len − 1 prior tokens, on `device` (the card unless asked): "moe",
+    and "prefix" where the config has a dense prefix."""
+    dev = resolve_device(device)
+    m = cfg.moe
+    st = {"moe": tf.init_stack_cache(cfg, cfg.n_layers - m.n_dense_prefix, batch,
+                                     kv_len, length=kv_len - 1, dtype=_dtype(cfg),
+                                     device=dev)}
+    if m.n_dense_prefix:
+        st["prefix"] = tf.init_stack_cache(cfg, m.n_dense_prefix, batch, kv_len,
+                                           length=kv_len - 1, dtype=_dtype(cfg),
+                                           device=dev)
+    return st
+
+
+def moe_decode_step(params, batch, state, cfg: ArchCfg):
+    """One greedy-decode step: batch["tokens"] (B, 1) → logits (B, 1, V);
+    the state's caches are written in place."""
+    x = _embed(params, batch["tokens"], cfg)
+    new_state = dict(state)
+    if "prefix_stack" in params:
+        x, new_state["prefix"] = tf.stack_decode(params["prefix_stack"], x,
+                                                 state["prefix"], cfg,
+                                                 use_moe=False, windows=None)
+    x, new_state["moe"] = tf.stack_decode(params["moe_stack"], x, state["moe"],
+                                          cfg, use_moe=True, windows=None)
+    x = layers.rmsnorm(params["final_ln"], x)
+    return _final_logits(x, params, cfg), new_state
 
 
 # ============================================================ ssm (xlstm)

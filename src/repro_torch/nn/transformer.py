@@ -1,11 +1,12 @@
-"""Transformer blocks and layer stacks for the dense LLMs: prefill and
-decode.
+"""Transformer blocks and layer stacks for the dense and MoE LLMs: prefill
+and decode.
 
-A "block" = pre-norm attention + pre-norm GLU FFN, with optional gemma2
-post-norms / softcaps / alternating windows. Per-layer parameters are
-stacked along a leading layer axis, as the reference's ``stack_init``
-leaves them; where the reference scans over that axis, the port runs a
-Python loop, so each layer's window is a Python int (or None) — what the
+A "block" = pre-norm attention + pre-norm FFN (a GLU FFN, or the MoE of
+`nn/moe` in a moe block), with optional gemma2 post-norms / softcaps /
+alternating windows. Per-layer parameters are stacked along a leading
+layer axis, as the reference's ``stack_init`` leaves them; where the
+reference scans over that axis, the port runs a Python loop, so each
+layer's window is a Python int (or None) — what the
 flash-attention kernel takes.
 
 Two execution modes per stack:
@@ -25,6 +26,7 @@ from repro_torch.configs.base import ArchCfg
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.nn import attention as attn
 from repro_torch.nn import layers
+from repro_torch.nn import moe as moe_lib
 
 GLOBAL_WINDOW = 2**30   # the window a global layer attends with (d < 2**30)
 
@@ -50,32 +52,44 @@ def ffn_apply(params, x: torch.Tensor, cfg: ArchCfg) -> torch.Tensor:
 # ---------------------------------------------------------------- block --
 
 def block_init(gen: torch.Generator, cfg: ArchCfg, *, use_moe: bool, dtype):
-    if use_moe:
-        raise NotImplementedError("MoE blocks wait for the moe family "
-                                  "(ROADMAP A16)")
+    """A block's parameters; a moe block holds "moe" in place of "ffn"."""
     p = {
         "ln1": layers.rmsnorm_init(gen, cfg.d_model, dtype),
         "attn": attn.mha_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd,
                               bias=cfg.qkv_bias, dtype=dtype),
         "ln2": layers.rmsnorm_init(gen, cfg.d_model, dtype),
-        "ffn": ffn_init(gen, cfg, dtype=dtype),
     }
+    if use_moe:
+        p["moe"] = moe_lib.moe_init(gen, _moe_cfg(cfg), dtype=dtype)
+    else:
+        p["ffn"] = ffn_init(gen, cfg, dtype=dtype)
     if cfg.post_norm:
         p["post_ln1"] = layers.rmsnorm_init(gen, cfg.d_model, dtype)
         p["post_ln2"] = layers.rmsnorm_init(gen, cfg.d_model, dtype)
     return p
 
 
+def _moe_cfg(cfg: ArchCfg) -> moe_lib.MoECfg:
+    m = cfg.moe
+    return moe_lib.MoECfg(cfg.d_model, cfg.d_ff, m.n_experts, m.top_k,
+                          shared_d_ff=m.shared_d_ff)
+
+
 def _norm(p, x, cfg: ArchCfg):
     return layers.rmsnorm(p, x, scale_plus_one=cfg.embed_scale)
+
+
+def _ffn(p_l, h: torch.Tensor, cfg: ArchCfg, use_moe: bool) -> torch.Tensor:
+    """The block's FFN on the normed h: the MoE (its aux dropped, as the
+    reference's serving path drops it) or the GLU FFN."""
+    if use_moe:
+        return moe_lib.moe_forward(p_l["moe"], h, _moe_cfg(cfg))[0]
+    return ffn_apply(p_l["ffn"], h, cfg)
 
 
 def block_decode(params, x: torch.Tensor, cache: attn.KVCache, cfg: ArchCfg, *,
                  window: Optional[int], use_moe: bool = False):
     """One-token block step. x: (B, 1, D). Returns (x, cache)."""
-    if use_moe:
-        raise NotImplementedError("MoE blocks wait for the moe family "
-                                  "(ROADMAP A16)")
     h = _norm(params["ln1"], x, cfg)
     a, cache = attn.self_attention_decode(
         params["attn"], h, cache, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
@@ -84,7 +98,7 @@ def block_decode(params, x: torch.Tensor, cache: attn.KVCache, cfg: ArchCfg, *,
     if cfg.post_norm:
         a = _norm(params["post_ln1"], a, cfg)
     x = x + a
-    f = ffn_apply(params["ffn"], _norm(params["ln2"], x, cfg), cfg)
+    f = _ffn(params, _norm(params["ln2"], x, cfg), cfg, use_moe)
     if cfg.post_norm:
         f = _norm(params["post_ln2"], f, cfg)
     return x + f, cache
@@ -167,9 +181,6 @@ def stack_prefill(params, x: torch.Tensor, cfg: ArchCfg, *, use_moe: bool = Fals
     in ``cache_dtype`` (bf16, as the reference, whatever the model's
     dtype). Attention is the flash-attention kernel (the plain version for
     tensors on the CPU)."""
-    if use_moe:
-        raise NotImplementedError("MoE blocks wait for the moe family "
-                                  "(ROADMAP A16)")
     B, S, _ = x.shape
     n_layers = n_layers_of(params)
     pos = torch.arange(S, device=x.device)
@@ -190,7 +201,7 @@ def stack_prefill(params, x: torch.Tensor, cfg: ArchCfg, *, use_moe: bool = Fals
         if cfg.post_norm:
             a = _norm(p_l["post_ln1"], a, cfg)
         x = x + a
-        f = ffn_apply(p_l["ffn"], _norm(p_l["ln2"], x, cfg), cfg)
+        f = _ffn(p_l, _norm(p_l["ln2"], x, cfg), cfg, use_moe)
         if cfg.post_norm:
             f = _norm(p_l["post_ln2"], f, cfg)
         x = x + f

@@ -210,13 +210,14 @@ def test_flash_attention_matches_plain(dev, B, Sq, Sk, H, n_kv, hd, causal,
 
 
 # bf16 only (the tensor-core kernel): hd 64 with ragged Sq and Sk, and the
-# llama3.2-3b prefill layer at full size
+# llama3.2-3b and olmoe-1b-7b prefill layers at full size
 TC_FLASH_CASES = [
     (2, 200, 70, 4, 2, 64, True, None, None),         # Sq > Sk, ragged
     (1, 100, 257, 8, 2, 64, False, None, None),       # non-causal, ragged Sk
     (2, 77, 77, 8, 8, 64, True, 16, 30.0),            # window + softcap, ragged
     (1, 1000, 1000, 16, 4, 64, True, None, None),     # many q tiles, ragged
     (4, 2048, 2048, 24, 8, 128, True, None, None),    # the main path's shape
+    (4, 2048, 2048, 16, 16, 128, True, None, None),   # olmoe-1b-7b's prefill (group 1)
 ]
 
 
@@ -511,6 +512,42 @@ def test_xlstm_serve_above_batch_16_matches_cpu(dev, param_dtype):
     rel = 5e-4 if param_dtype == "float32" else 3e-2
     scale = cpu.last_logits.abs().max().item()
     assert (cpu.last_logits - card.last_logits.cpu()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_moe_serve_on_the_card_matches_the_cpu(dev, arch, param_dtype):
+    """Reduced olmoe-1b-7b (2 MoE layers) and kimi-k2-1t-a32b (a dense
+    prefix layer, then a MoE layer with a shared expert) served on the card
+    and on the CPU from the same weights, under the flip rule
+    (`tests/moe_flip_rule.py`): one flash launch a layer, a first-order
+    flip within CARD_GAP_BOUND of a tie, router inputs, ids and last logits
+    that no flip reached within CARD_STATE_REL of their scale."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import get_model_api
+    from moe_flip_rule import check_served, record_port_routes   # tests/, on the path
+    cfg = dataclasses.replace(get_config(arch, reduced=True), param_dtype=param_dtype)
+    params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
+    kw = dict(reduced=True, batch=2, prompt_len=40, tokens=8, seed=5,
+              param_dtype=param_dtype)
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    with record_port_routes() as cpu_log:
+        cpu = serve(arch, device="cpu", params=params, **kw)
+    tc0 = flash_ops.tc_launches
+    with record_port_routes() as card_log:
+        card = serve(arch, device=dev, params=to(params), **kw)
+    assert card.flash_launches == cfg.n_layers and card.slstm_launches == 0
+    assert flash_ops.tc_launches - tc0 == (cfg.n_layers if param_dtype == "bfloat16" else 0)
+    rep = check_served(card, cpu, card_log, cpu_log, dtype=param_dtype,
+                       n_moe=cfg.n_layers - cfg.moe.n_dense_prefix, name=arch)
+    print("\n".join(rep.lines(f"{arch} {param_dtype}")))
 
 
 @pytest.mark.cuda
