@@ -29,8 +29,11 @@ Phases, in order; any failure exits non-zero:
    hd 128) causal at S in {17, 128, 2048}, gemma2 heads (H 32, n_kv 16)
    with window 64 and softcap 50 and as a global layer, granite's MQA,
    non-causal Sq != Sk, hd 64 with Sq > Sk, and rows that see no key,
-   bf16 at hd 64 with ragged Sq and Sk, and olmoe-1b-7b's prefill layer
-   (B 4, S 2048, H 16, n_kv 16: GQA group 1); f32 within atol 1e-5 (the sum order
+   bf16 at hd 64 with ragged Sq and Sk, olmoe-1b-7b's prefill layer
+   (B 4, S 2048, H 16, n_kv 16: GQA group 1), and hd 112 (zamba2-7b's
+   shared attention, run in the kernels' layout of 128): its prefill
+   layer (B 4, S 2048, H 32, n_kv 32, window 4096), a window of 512 < S,
+   GQA, Sq != Sk and Sq > Sk, bf16 and f32; f32 within atol 1e-5 (the sum order
    differs), bf16 within one bf16 step (rtol 2**-7, atol 1e-5); bf16 runs
    the tensor-core kernel, f32 the CUDA-core one (counted); slstm against its plain version at B in
    {1, 4}, T in {1, 17, 2048}, (NH, hd) in {(4, 64), (4, 512)}, f32 and
@@ -56,8 +59,10 @@ Phases, in order; any failure exits non-zero:
    slstm also the floor of its 2,048 sequential steps, the exchange of h
    between a cluster's blocks alone on the same clusters; rewafl_select
    at S 100 and 1e6, stat_util at S 1e6, fedavg at the async land's
-   (30, 206,922), and flash_attention at olmoe-1b-7b's prefill layer
-   beside SDPA;
+   (30, 206,922), flash_attention at olmoe-1b-7b's and zamba2-7b's
+   prefill layers beside SDPA, and the f32 kernel at hd 112 (B 1, S 512,
+   H 32); one zamba2-7b Mamba2 layer's chunked SSD (plain PyTorch) and
+   its f32 product of the bf16 mixing matrix with x, beside its bound;
    then the campaigns' batched calls (each kernel's op under
    `torch.func.vmap`, one launch a call): fedavg at (18, 20, 206,922)
    and (18, 40, 206,922) f32 with a NaN row at weight 0, within atol 1e-5
@@ -162,8 +167,11 @@ Phases, in order; any failure exits non-zero:
    once per layer, 5 serves), xlstm-1.3b (48 layers, d 2048; slstm's
    cluster kernel once per sLSTM layer, 6, 3 serves) and olmoe-1b-7b (16
    MoE layers, d 2048, 64 experts, top 8, the dense oracle;
-   flash_attention's tensor-core kernel once per layer, 16, 4 serves),
-   with each serve's peak memory; kimi-k2-1t-a32b at full width is not
+   flash_attention's tensor-core kernel once per layer, 16, 4 serves) and
+   zamba2-7b (81 Mamba2 layers, d 3584, a shared attention block of hd
+   112 after every 6: flash_attention's tensor-core kernel 13 times, 3
+   serves), with each serve's peak memory beside the card's name and
+   power limit; kimi-k2-1t-a32b at full width is not
    attempted (one line: its parameters and the bytes its bf16 weights
    need against the card's memory); then reduced
    llama3.2-3b, gemma2-27b and xlstm-1.3b (at batch 2, and xlstm-1.3b at
@@ -177,7 +185,9 @@ Phases, in order; any failure exits non-zero:
    experts with no earlier flip upstream of it lies within 5e-4 (f32) or
    2**-5 (bf16) of a tie on the CPU's side; router inputs, ids and last
    logits that no flip reached within 5e-4 / 3e-2 of their scale), with
-   each one's flip count and the largest gap among flips printed;
+   each one's flip count and the largest gap among flips printed; and
+   reduced zamba2-7b at prompt 128 (two SSD chunks; window 8 wraps the
+   ring) and batch 2, f32 and bf16, card against CPU as the dense ones;
 9. a JSON line of `select_aggregate`'s check and times, one of the
    grid's and the seed batch's ms/round beside their singles', one of
    kernels (each FL kernel with its batched call's check and times),
@@ -217,8 +227,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.append(os.path.join(ROOT, "tests"))   # the flip rule the card's moe tests use
-
-from moe_flip_rule import CARD_GAP_BOUND, check_served, record_port_routes  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet) for the bound: HBM3 rate,
 # fp32 outside the tensor cores (rewafl_select and fedavg do f32 FMAs),
@@ -573,9 +581,31 @@ FLASH_CASES = [
      None, torch.bfloat16),
     ("olmoe causal S=2048 H 16 n_kv 16 bf16 (moe serving path)", 4, 2048, 2048, 16, 16,
      128, True, None, None, torch.bfloat16),
+    # hd 112: zamba2-7b's shared attention, in the kernels' layout of 128
+    ("zamba2 causal window 4096 S=2048 H 32 n_kv 32 hd 112 bf16 (hybrid serving path)",
+     4, 2048, 2048, 32, 32, 112, True, 4096, None, torch.bfloat16),
+    ("hd 112 window 512 < S=2048 bf16", 2, 2048, 2048, 32, 32, 112, True, 512, None,
+     torch.bfloat16),
+    ("hd 112 GQA (H 32, n_kv 8) ragged S=300 bf16", 2, 300, 300, 32, 8, 112, True, None,
+     None, torch.bfloat16),
+    ("hd 112 non-causal Sq=100 Sk=257 bf16", 1, 100, 257, 8, 2, 112, False, None, None,
+     torch.bfloat16),
+    ("hd 112 causal Sq=200 > Sk=70 window 8 bf16", 1, 200, 70, 4, 2, 112, True, 8, None,
+     torch.bfloat16),
+    ("hd 112 causal window 4096 S=512 H 32 n_kv 32 f32", 1, 512, 512, 32, 32, 112, True,
+     4096, None, torch.float32),
+    ("hd 112 window 8 GQA S=200 f32", 2, 200, 200, 8, 2, 112, True, 8, None, torch.float32),
+    ("hd 112 non-causal Sq=100 Sk=257 f32", 2, 100, 257, 8, 2, 112, False, None, None,
+     torch.float32),
+    ("hd 112 causal Sq=200 > Sk=70 window 8 softcap 50 f32", 1, 200, 70, 4, 2, 112, True,
+     8, 50.0, torch.float32),
 ]
 MAIN_FLASH = dict(B=4, S=2048, H=24, n_kv=8, hd=128)   # llama3.2-3b prefill
 OLMOE_FLASH = dict(B=4, S=2048, H=16, n_kv=16, hd=128)  # olmoe-1b-7b prefill (group 1)
+# zamba2-7b's shared attention at its prefill, as the path calls it (window
+# 4096 >= S: the causal mask alone), and the f32 kernel at hd 112
+ZAMBA_FLASH = dict(B=4, S=2048, H=32, n_kv=32, hd=112, window=4096)
+ZAMBA_F32_FLASH = dict(B=1, S=512, H=32, n_kv=32, hd=112, window=4096, dtype=torch.float32)
 FLASH_F32_ATOL = 1e-5        # the sum order differs
 FLASH_BF16_RTOL = 2.0 ** -7  # both round one f32 result to bf16: one step apart
 
@@ -620,26 +650,61 @@ def phase_flash(dev) -> float:
 
 
 def time_flash(dev, shape: dict = MAIN_FLASH) -> dict:
-    """Times at one prefill layer's call, bf16, causal: the main path's
-    (llama3.2-3b, B 4, S 2048) unless `shape` names another."""
+    """Times at one prefill layer's call, causal, bf16 unless `shape` names
+    a dtype: the main path's (llama3.2-3b, B 4, S 2048) unless `shape`
+    names another, with its window where it has one (at least S: the
+    library call takes the causal mask alone)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
     B, S, H, n_kv, hd = (shape[k] for k in ("B", "S", "H", "n_kv", "hd"))
-    q, k, v = flash_inputs(B, S, S, H, n_kv, hd, torch.bfloat16, 7, dev)
+    window, dt = shape.get("window"), shape.get("dtype", torch.bfloat16)
+    check(window is None or window >= S, f"time_flash: window {window} < S {S}")
+    q, k, v = flash_inputs(B, S, S, H, n_kv, hd, dt, 7, dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))   # views, (B, heads, S, hd)
     # each input read once, the output written once; 4·hd flops for each
     # (query, key) pair the causal mask keeps (q·k and p·v)
-    n_bytes = 2 * (2 * B * S * H * hd + 2 * B * S * n_kv * hd)
+    n_bytes = q.element_size() * (2 * B * S * H * hd + 2 * B * S * n_kv * hd)
     n_flops = 4 * B * H * hd * (S * (S + 1) // 2)
-    b_ms, b_by = bound(n_bytes, n_flops, BF16_FLOP_PER_S)
-    kernel = lambda: ops.flash_attention(q, k, v, causal=True)   # noqa: E731
+    b_ms, b_by = bound(n_bytes, n_flops,
+                       BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S)
+    kernel = lambda: ops.flash_attention(q, k, v, causal=True, window=window)  # noqa: E731
     return dict(ms=time_ms(kernel), eager_ms=time_eager_ms(kernel),
-                plain_ms=time_ms(lambda: ref.attention(q, k, v, causal=True),
+                plain_ms=time_ms(lambda: ref.attention(q, k, v, causal=True, window=window),
                                  reps=5, inner=2),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)),
                 bound_ms=b_ms, bound_by=b_by)
+
+
+def time_ssd(dev) -> dict:
+    """One Mamba2 layer's chunked SSD (`nn/ssm._ssd_chunk_scan`, plain
+    PyTorch: the reference has no kernel for it) at zamba2-7b's prefill:
+    B 4, L 2048, 112 heads of 64, state 64, bf16 operands; and its largest
+    product alone, the mixing matrix M (rounded to bf16) times x in f32
+    (TF32 off): 14,336 products of 64 x 64 x 64, with its bound."""
+    from repro_torch.nn import ssm
+    B, L, H, P, N, cl = 4, 2048, 112, 64, 64, 64
+    nc = L // cl
+    dims = ssm.Mamba2Dims(3584, H * P, H, P, N)
+    g = torch.Generator(device=dev).manual_seed(11)
+    xh = torch.randn(B, L, H, P, generator=g, device=dev).to(torch.bfloat16)
+    dtp = torch.rand(B, L, H, generator=g, device=dev) * 0.1
+    A = torch.linspace(1.0, 16.0, H, device=dev)
+    Bc, Cc = (torch.randn(B, L, N, generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    M = torch.randn(B, nc, cl, cl, H, generator=g, device=dev).to(torch.bfloat16).float()
+    xc = xh.reshape(B, nc, cl, H, P).float()
+    b_ms, b_by = bound(4 * (M.numel() + 2 * xc.numel()), 2 * B * nc * cl * cl * H * P)
+    out = dict(ssd_ms=time_ms(lambda: ssm._ssd_chunk_scan(xh, dtp, A, Bc, Cc, dims),
+                              reps=5, inner=2),
+               mx_ms=time_ms(lambda: torch.einsum("bcijh,bcjhp->bcihp", M, xc),
+                             reps=5, inner=2),
+               mx_bound_ms=b_ms, mx_bound_by=b_by)
+    print(f"time ssd zamba2-7b layer (B {B}, L {L}, H {H}, P {P}, N {N}, bf16 operands): "
+          f"_ssd_chunk_scan {out['ssd_ms']:.5f} ms; its f32 M x product "
+          f"{out['mx_ms']:.5f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return out
 
 
 # -------------------------------------------------------------------- slstm
@@ -2065,6 +2130,11 @@ avail, ui, rnd, deltas, w = chip_smoke.agg_inputs(S, K, P, "unavail30", 11, dev)
 kw = dict(T_round=60.0, alpha=1.0, beta=1.0)
 ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
 torch.cuda.synchronize()
+# a first profiled call, not counted: the device tracing's start-up
+# (a run's count once came out one kernel short, 5 of 6)
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
+    torch.cuda.synchronize()
 with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     for _ in range(calls):
         ops.select_aggregate(rnd, K, avail, 0.0, ui, deltas, w, **kw)
@@ -2203,6 +2273,8 @@ def phase_select_aggregate(dev) -> dict:
             fedavg_indexed=dict(
                 ms=time_ms(lambda: fedavg_ops.weighted_aggregate_indexed(deltas, idx,
                                                                          live, w)),
+                eager_ms=time_eager_ms(lambda: fedavg_ops.weighted_aggregate_indexed(
+                    deltas, idx, live, w)),
                 cold_ms=time_cold_ms(lambda: fedavg_ops.weighted_aggregate_indexed(
                     deltas, idx, live, w)),
                 plain_ms=time_ms(lambda: fedavg_ref.weighted_aggregate_indexed(
@@ -2242,15 +2314,18 @@ def phase_select_aggregate(dev) -> dict:
 
 SERVE_B, SERVE_S, SERVE_TOKENS = 4, 2048, 32
 # timed serves of each serving path (the first also counts the launches)
-SERVE_REPEATS = {"llama3.2-3b": 5, "xlstm-1.3b": 3, "olmoe-1b-7b": 4}
+SERVE_REPEATS = {"llama3.2-3b": 5, "xlstm-1.3b": 3, "olmoe-1b-7b": 4, "zamba2-7b": 3}
 
 
 def prefill_launches(cfg, batch: int) -> dict:
     """The kernel launches one prefill of `cfg` at `batch` makes (slstm:
-    one a slice of at most 16 rows); every other kernel must launch 0
-    times."""
+    one a slice of at most 16 rows; flash_attention: one a layer, or one a
+    group of Mamba2 layers in the hybrid family, whose tail has no
+    attention); every other kernel must launch 0 times."""
     if cfg.family == "ssm":
         return {"slstm": cfg.n_layers // cfg.slstm_group * -(-batch // 16)}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.attn_every}
     return {"flash_attention": cfg.n_layers}
 
 
@@ -2269,7 +2344,7 @@ def serve_params(dev, arch: str):
     return cfg, params
 
 
-def phase_serve(dev, arch: str, cfg, params):
+def phase_serve(dev, arch: str, cfg, params, smi: str):
     """A serving path at full width: prefill B 4 x S 2048, then 32 greedy
     decode steps, with every kernel's launch count read just after; then
     the same serve again, for the median and spread of the times over
@@ -2320,7 +2395,7 @@ def phase_serve(dev, arch: str, cfg, params):
           f"{spread['decode_ms_per_token'][0]:.2f}-{spread['decode_ms_per_token'][1]:.2f}; "
           f"{out['decode_tok_per_s']:.1f} tok/s over {SERVE_B} requests), {SERVE_TOKENS} "
           f"tokens decoded; launches {counts}, on the tensor cores {tc}; peak "
-          f"{peak_gb:.2f} GB", flush=True)
+          f"{peak_gb:.2f} GB ({smi})", flush=True)
     return counts, tc, out
 
 
@@ -2333,15 +2408,18 @@ SERVE_AGREE_REL = {"float32": 5e-4, "bfloat16": 3e-2}
 # at batch 17 each sLSTM layer runs two slstm launches; the reduced moe
 # family: olmoe-1b-7b (2 MoE layers of 4 experts, top 2) and
 # kimi-k2-1t-a32b (a dense prefix layer, then a MoE layer with a shared
-# expert)
+# expert); zamba2-7b's prompt is two SSD chunks of 64, and its reduced
+# window of 8 wraps the shared block's ring cache
 AGREE_ARCHS = [("llama3.2-3b", 40, 2), ("gemma2-27b", 40, 2), ("xlstm-1.3b", 64, 2),
-               ("xlstm-1.3b", 64, 17), ("olmoe-1b-7b", 40, 2), ("kimi-k2-1t-a32b", 40, 2)]
+               ("xlstm-1.3b", 64, 17), ("olmoe-1b-7b", 40, 2), ("kimi-k2-1t-a32b", 40, 2),
+               ("zamba2-7b", 128, 2)]
 
 
 def phase_serve_agreement(dev) -> None:
     """Reduced llama3.2-3b, gemma2-27b (hd 64; gemma2 with windows and
     softcaps), xlstm-1.3b (8 layers, 4 sLSTM of hd 64; at batch 2 and 17),
-    olmoe-1b-7b and kimi-k2-1t-a32b, with f32 and with bf16 weights,
+    olmoe-1b-7b, kimi-k2-1t-a32b and zamba2-7b (2 Mamba2 layers, then the
+    shared attention block, window 8), with f32 and with bf16 weights,
     served on the card and on the CPU from the same weights: greedy ids
     equal, last logits within SERVE_AGREE_REL of their scale. The moe
     family is held under the flip rule (`tests/moe_flip_rule.py`) instead:
@@ -2353,6 +2431,7 @@ def phase_serve_agreement(dev) -> None:
     import contextlib
     import dataclasses
 
+    from moe_flip_rule import record_port_routes
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.api import get_model_api
@@ -2395,6 +2474,7 @@ def phase_serve_agreement(dev) -> None:
 
 def check_moe_served(cfg, card, cpu, card_log, cpu_log, dt: str, name: str) -> None:
     """A moe serve on the card held to the CPU's under the flip rule."""
+    from moe_flip_rule import CARD_GAP_BOUND, check_served
     try:
         r = check_served(card, cpu, card_log, cpu_log, dtype=dt, name=name,
                          n_moe=cfg.n_layers - cfg.moe.n_dense_prefix)
@@ -2590,6 +2670,15 @@ def main() -> None:
     times["flash_attention"]["olmoe_prefill"] = olmoe_flash = time_flash(dev, OLMOE_FLASH)
     olmoe_flash.update(shape="B 4, S 2048, H 16, n_kv 16, hd 128 bf16 causal",
                        launch_floor_ms=floor_ms)
+    # at zamba2-7b's shared attention (hd 112), bf16 as its prefill calls it,
+    # and the f32 kernel at hd 112
+    times["flash_attention"]["zamba2_prefill"] = zamba_flash = time_flash(dev, ZAMBA_FLASH)
+    zamba_flash.update(shape="B 4, S 2048, H 32, n_kv 32, hd 112 bf16 causal window 4096",
+                       launch_floor_ms=floor_ms)
+    times["flash_attention"]["hd112_f32"] = f32_flash = time_flash(dev, ZAMBA_F32_FLASH)
+    f32_flash.update(shape="B 1, S 512, H 32, n_kv 32, hd 112 f32 causal window 4096",
+                     launch_floor_ms=floor_ms)
+    time_ssd(dev)
     for k, v in time_batched(dev).items():   # the campaigns' batched calls
         v.update(launch_floor_ms=floor_ms, max_abs_err=batched_err[k])
         times[k]["batched"] = v
@@ -2598,6 +2687,9 @@ def main() -> None:
                                        if "batched" in v] + [
             (f"fedavg K={ASYNC_SLOTS} (async land)", land),
             ("flash_attention olmoe-1b-7b prefill (H 16, n_kv 16)", olmoe_flash),
+            ("flash_attention zamba2-7b prefill (H 32, n_kv 32, hd 112, window 4096)",
+             zamba_flash),
+            ("flash_attention f32 hd 112 (B 1, S 512, H 32, n_kv 32)", f32_flash),
             ("rewafl_select S=1e6", time_select(dev, 1_000_000)),
             ("stat_util S=1e6 n=32", time_stat_util(dev, 1_000_000, 32))]:
         extra = (f", padded rows {v['padded_ms']:.5f} ms" if "padded_ms" in v else
@@ -2649,7 +2741,8 @@ def main() -> None:
               f"slots + gather + weighted_aggregate {r['separate_ms']:.5f} ms (issued "
               f"from Python {r['separate_eager_ms']:.5f} ms), plain {r['plain_ms']:.5f} "
               f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']}); fedavg_indexed "
-              f"alone {k['ms']:.5f} ms (L2-cold {k['cold_ms']:.5f}; bf16 stack "
+              f"alone {k['ms']:.5f} ms (issued from Python {k['eager_ms']:.5f}; L2-cold "
+              f"{k['cold_ms']:.5f}; bf16 stack "
               f"{k['bf16_ms']:.5f}, bound {k['bf16_bound_ms']:.6f}), plain "
               f"{k['plain_ms']:.5f} ms, library {k['library_ms']:.5f} ms, bound "
               f"{k['bound_ms']:.6f} ms ({k['bound_by']})", flush=True)
@@ -2664,7 +2757,7 @@ def main() -> None:
     tc_counts, serve_paths = {}, {}
     for arch in SERVE_REPEATS:
         cfg, params = serve_params(dev, arch)
-        serve_counts, serve_tc, serve_out = phase_serve(dev, arch, cfg, params)
+        serve_counts, serve_tc, serve_out = phase_serve(dev, arch, cfg, params, smi)
         for k in prefill_launches(cfg, SERVE_B):
             counts.setdefault(k, serve_counts[k])
             tc_counts.setdefault(k, serve_tc[k])

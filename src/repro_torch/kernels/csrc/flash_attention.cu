@@ -15,6 +15,11 @@
 // lie wholly above the causal diagonal or outside the window are skipped:
 // they would add exactly nothing.
 //
+// Head widths 64, 112 and 128. Both kernels lay tiles out in 64-wide hd
+// boxes; hd 112 (zamba2-7b's shared attention) runs in the layout for 128
+// with the columns past 112 zero: they add nothing to q k^T, give zero
+// output columns, and are never written to o.
+//
 // Two kernels, chosen by dtype:
 //
 // bf16: `flash_fwd_tc_kernel`, on the tensor cores. What bounds it:
@@ -94,11 +99,13 @@ constexpr int LDK = BK + PAD;   // row stride of the k^T tile
 
 struct Problem {
   int Sq, Sk, H, n_kv;
+  int hd;                   // the true head width, <= HD: the rows' stride
   float scale, softcap;     // softcap <= 0: none
   bool causal, has_window;
   long long window;
 };
 
+// HD: the tiles' width (64 or 128); the columns past p.hd stay zero.
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -132,7 +139,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = i / HD, d = i % HD;
     const long long qq = q0 + r;
     float x = 0.f;
-    if (qq < p.Sq) x = q[((b * p.Sq + qq) * p.H + h) * HD + d] * p.scale;
+    if (qq < p.Sq && d < p.hd) x = q[((b * p.Sq + qq) * p.H + h) * p.hd + d] * p.scale;
     QT[d * LDQ + r] = x;
   }
 
@@ -151,8 +158,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int c = i / HD, d = i % HD;
       const long long kk = k0 + c;
       float kx = 0.f, vx = 0.f;
-      if (kk < p.Sk) {
-        const long long off = ((b * p.Sk + kk) * p.n_kv + kvh) * HD + d;
+      if (kk < p.Sk && d < p.hd) {
+        const long long off = ((b * p.Sk + kk) * p.n_kv + kvh) * p.hd + d;
         kx = k[off];
         vx = v[off];
       }
@@ -243,11 +250,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const long long row = q0 + ty * 4 + i;
     if (row >= p.Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* out = o + ((b * p.Sq + row) * p.H + h) * HD;
+    float* out = o + ((b * p.Sq + row) * p.H + h) * p.hd;
 #pragma unroll
     for (int g = 0; g < NC; ++g)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) out[g * 64 + tx * 4 + j] = acc[i][g * 4 + j] / den;
+      for (int j = 0; j < 4; ++j) {
+        const int col = g * 64 + tx * 4 + j;
+        if (col < p.hd) out[col] = acc[i][g * 4 + j] / den;
+      }
   }
 }
 
@@ -843,16 +853,18 @@ bool encode_view(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int hd, i
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// HD: the layout's width (64 or 128); the tensor maps take the true hd, so
+// TMA loads zeros into the columns past it and the store drops them.
 template <int HD>
-int launch_tc_hd(const void* q, const void* k, const void* v, void* o, const TcProblem& p,
-                 cudaStream_t stream) {
+int launch_tc_hd(const void* q, const void* k, const void* v, void* o, int hd,
+                 const TcProblem& p, cudaStream_t stream) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv, to;
-  if (!encode_view(enc, &tq, q, HD, p.H, p.Sq, p.B, 64) ||
-      !encode_view(enc, &to, o, HD, p.H, p.Sq, p.B, 64) ||
-      !encode_view(enc, &tk, k, HD, p.n_kv, p.Sk, p.B, TcLayout<HD>::BK) ||
-      !encode_view(enc, &tv, v, HD, p.n_kv, p.Sk, p.B, TcLayout<HD>::BK))
+  if (!encode_view(enc, &tq, q, hd, p.H, p.Sq, p.B, 64) ||
+      !encode_view(enc, &to, o, hd, p.H, p.Sq, p.B, 64) ||
+      !encode_view(enc, &tk, k, hd, p.n_kv, p.Sk, p.B, TcLayout<HD>::BK) ||
+      !encode_view(enc, &tv, v, hd, p.n_kv, p.Sk, p.B, TcLayout<HD>::BK))
     return (int)cudaErrorInvalidValue;
   static bool attr_set[64] = {};
   cudaError_t err = allow_smem(flash_fwd_tc_kernel<HD>, TcLayout<HD>::BYTES, attr_set);
@@ -873,7 +885,8 @@ bool bad_shape(int B, int Sq, int Sk, int H, int n_kv) {
 }  // namespace
 
 // q (B, Sq, H, hd), k/v (B, Sk, n_kv, hd), o (B, Sq, H, hd), all contiguous;
-// hd 64 or 128. has_window = 0: no window. softcap <= 0: none. Returns a
+// hd 64, 112 or 128 (112 in the layout for 128, the columns past 112
+// zero). has_window = 0: no window. softcap <= 0: none. Returns a
 // cudaError_t.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int B, int Sq, int Sk, int H,
@@ -882,14 +895,14 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    float softcap, void* stream) {
   if (bad_shape(B, Sq, Sk, H, n_kv)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
-  const Problem p{Sq, Sk, H, n_kv, scale, softcap, causal != 0, has_window != 0, window};
+  const Problem p{Sq, Sk, H, n_kv, hd, scale, softcap, causal != 0, has_window != 0, window};
   const float* qq = static_cast<const float*>(q);
   const float* kk = static_cast<const float*>(k);
   const float* vv = static_cast<const float*>(v);
   float* oo = static_cast<float*>(o);
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 64) return launch_f32_hd<64>(qq, kk, vv, oo, B, p, st);
-  if (hd == 128) return launch_f32_hd<128>(qq, kk, vv, oo, B, p, st);
+  if (hd == 112 || hd == 128) return launch_f32_hd<128>(qq, kk, vv, oo, B, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -910,7 +923,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   const long long w = window < -(long long)Sk ? -(long long)Sk
                       : window > (long long)Sq ? (long long)Sq : window;
   const TcProblem p{B, Sq, Sk, H, n_kv, scale, softcap, causal != 0, has_window != 0, (int)w};
-  if (hd == 64) return launch_tc_hd<64>(q, k, v, o, p, st);
-  if (hd == 128) return launch_tc_hd<128>(q, k, v, o, p, st);
+  if (hd == 64) return launch_tc_hd<64>(q, k, v, o, 64, p, st);
+  if (hd == 112 || hd == 128) return launch_tc_hd<128>(q, k, v, o, hd, p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,7 +22,7 @@ from repro_torch.kernels.flash_attention import ref
 launches = 0      # kernel launches since the last reset (a plain counter)
 tc_launches = 0   # of which the bf16 tensor-core kernel's
 
-HEAD_DIMS = (64, 128)   # head widths the kernel is compiled for
+HEAD_DIMS = (64, 112, 128)   # head widths the kernels take (112 in the layout of 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -1,7 +1,7 @@
-"""Serve a dense, vlm, moe or ssm (xlstm) architecture: batched prefill +
-greedy decode through the serving stack (ring KV caches or recurrent
-states, prefill/decode steps), on a CUDA device by default. The port of
-`examples/serve_llm.py`.
+"""Serve a dense, vlm, moe, ssm (xlstm) or hybrid (zamba2) architecture:
+batched prefill + greedy decode through the serving stack (ring KV caches
+or recurrent states, prefill/decode steps), on a CUDA device by default.
+The port of `examples/serve_llm.py`.
 
 CLI:  PYTHONPATH=src python -m repro_torch.launch.serve \
           --arch llama3.2-3b --batch 4 --prompt-len 2048 --tokens 32
@@ -9,7 +9,9 @@ CLI:  PYTHONPATH=src python -m repro_torch.launch.serve \
       ~13.6 GB of bf16 weights; kimi-k2-1t-a32b, ~1 T parameters, fits
       no single card and serves `--reduced` only; or --arch xlstm-1.3b,
       whose prompt length must be a multiple of 64, or at most 64: the
-      mLSTM's chunk rule)
+      mLSTM's chunk rule; or --arch zamba2-7b, 81 Mamba2 layers and a
+      shared attention block after every 6, ~13.3 GB of bf16 weights,
+      under the same rule for the SSD chunk of 64)
 (`--reduced` serves the CPU-sized variant, in f32 unless
 `--param-dtype bfloat16`; `--device cpu` runs on the CPU; without a GPU
 the default raises.) Weights are random, drawn from
@@ -40,6 +42,7 @@ class ServeResult:
     prefill_s: float           # prefill + first argmax, ends in a device sync
     decode_s: float            # all decode steps, ends in a device sync
     flash_launches: int        # flash-attention kernel launches in this call
+                               # (one a dense layer, one a zamba2 group)
     slstm_launches: int        # sLSTM kernel launches in this call
     n_params: int
     batch: int
@@ -120,15 +123,18 @@ def summary(res: ServeResult) -> dict:
 def main(argv: Optional[list] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="llama3.2-3b",
-                    help="a dense, vlm, moe (olmoe-1b-7b, kimi-k2-1t-a32b) or "
-                    "ssm (xlstm-1.3b) architecture")
+                    help="a dense, vlm, moe (olmoe-1b-7b, kimi-k2-1t-a32b), "
+                    "ssm (xlstm-1.3b) or hybrid (zamba2-7b) architecture; "
+                    "xlstm and zamba2 take a prompt of at most 64 tokens or "
+                    "a multiple of 64")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true",
                     help="the CPU-sized variant (d_model <= 256; 2 layers, "
-                    "8 for xlstm; 4 experts, top 2, for moe)")
+                    "8 for xlstm; 4 experts, top 2, for moe; one group of 2 "
+                    "Mamba2 layers and window 8 for zamba2)")
     ap.add_argument("--param-dtype", choices=("float32", "bfloat16"),
                     help="the weights' dtype (default: the config's)")
     ap.add_argument("--device", default="cuda")

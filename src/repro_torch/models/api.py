@@ -19,7 +19,6 @@ class ModelAPI:
 
 
 _NOT_PORTED = {
-    "hybrid": "the hybrid family (zamba2) waits for nn/ssm (ROADMAP A16)",
     "audio": "the audio family (whisper) waits for models/whisper (ROADMAP A16)",
 }
 
@@ -35,6 +34,9 @@ def get_model_api(cfg: ArchCfg) -> ModelAPI:
     if fam == "ssm":
         return ModelAPI(lm.xlstm_init, lm.xlstm_loss, lm.xlstm_prefill,
                         lm.xlstm_decode_step, lm.xlstm_init_decode_state)
+    if fam == "hybrid":
+        return ModelAPI(lm.zamba_init, lm.zamba_loss, lm.zamba_prefill,
+                        lm.zamba_decode_step, lm.zamba_init_decode_state)
     if fam in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[fam]}")
     raise ValueError(f"unknown family {fam}")

@@ -1,6 +1,7 @@
 """Decoder language models for serving: the dense family (llama /
 deepseek / granite / gemma2), the vlm family's language tower, the moe
-family (olmoe / kimi-k2) and the ssm family (xlstm).
+family (olmoe / kimi-k2), the ssm family (xlstm) and the hybrid family
+(zamba2).
 
 Per-family API (see ``repro_torch.models.api``), the reference's without
 its sharding argument:
@@ -13,8 +14,10 @@ Decode-state convention: a "KV cache of seq_len" holds seq_len−1 prior
 tokens; decode_step writes token seq_len−1 (0-based) and attends the full
 seq_len context. The dense state is a ring cache of KV slots, the moe
 state a dict of them (one for the MoE stack, one for a dense prefix
-stack), the xlstm state the recurrent states of every layer; decode_step
-writes each in place and returns it.
+stack), the xlstm state the recurrent states of every layer, the hybrid
+state the Mamba2 caches of every layer and a ring cache for each
+application of the shared attention block; decode_step writes each in
+place and returns it.
 """
 from __future__ import annotations
 
@@ -25,7 +28,9 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.configs.base import ArchCfg
-from repro_torch.nn import layers, xlstm
+from repro_torch.kernels.flash_attention import ops as flash
+from repro_torch.nn import attention as attn
+from repro_torch.nn import layers, ssm, xlstm
 from repro_torch.nn import transformer as tf
 
 
@@ -307,6 +312,170 @@ def xlstm_decode_step(params, batch, state, cfg: ArchCfg):
             for leaf, t in zip(mst.state, new.state):
                 leaf[gi, li] = t
             mst.conv_buf[gi, li] = new.conv_buf
+    x = layers.rmsnorm(params["final_ln"], x)
+    return _final_logits(x, params, cfg), state
+
+
+# ===================================================== hybrid (zamba2)
+#
+# G groups of g Mamba2 layers, each group followed by one shared-weight
+# attention + MLP block, then `tail` Mamba2 layers without attention
+# (zamba2-7b: 81 = 13 × 6 + 3). Stacked leaves: mamba_groups_inner
+# (G, g, …), mamba_tail (tail, …); where the reference scans over them,
+# the port loops. Each group has its own ring cache of the shared block.
+
+def _zamba_dims(cfg: ArchCfg) -> ssm.Mamba2Dims:
+    return ssm.dims_for(cfg.d_model, cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+
+
+def _zamba_layout(cfg: ArchCfg):
+    """(n_groups, group_size, n_tail)."""
+    g = cfg.attn_every
+    return cfg.n_layers // g, g, cfg.n_layers % g
+
+
+def zamba_init(gen: torch.Generator, cfg: ArchCfg):
+    """Random parameters drawn from `gen` on its device, in the reference's
+    tree (A_log, D and dt_bias f32 whatever the model's dtype)."""
+    dt = _dtype(cfg)
+    dims = _zamba_dims(cfg)
+    G, g, tail = _zamba_layout(cfg)
+
+    def mamba_layer():
+        return _with_ln(gen, ssm.mamba2_init(gen, dims, dtype=dt), cfg, dt)
+
+    p = {
+        "embed": layers.embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dt),
+        "mamba_groups_inner": tf.stack_trees([
+            tf.stack_trees([mamba_layer() for _ in range(g)]) for _ in range(G)]),
+        "shared_attn": tf.block_init(gen, cfg, use_moe=False, dtype=dt),
+        "final_ln": layers.rmsnorm_init(gen, cfg.d_model, dt),
+    }
+    if tail:
+        p["mamba_tail"] = tf.stack_trees([mamba_layer() for _ in range(tail)])
+    return p
+
+
+def zamba_loss(params, batch, cfg: ArchCfg):
+    raise NotImplementedError("zamba2 training (zamba_loss, chunked_ce) waits for "
+                              "the training slice (ROADMAP A16)")
+
+
+def _zamba_mamba_prefill(stacked, x, dims: ssm.Mamba2Dims, dt):
+    """The stacked Mamba2 layers over the sequence. Returns (x, their
+    caches: the final states, and zero conv buffers in the model's dtype,
+    as the reference hands decode)."""
+    B = x.shape[0]
+    states = []
+    for i in range(tf.n_layers_of(stacked)):
+        p = tf.layer_params(stacked, i)
+        out, st = ssm.mamba2_forward(p["core"], layers.rmsnorm(p["ln"], x), dims,
+                                     return_state=True)
+        x = x + out
+        states.append(st)
+    buf = x.new_zeros((len(states), B, dims.d_conv - 1,
+                       dims.d_inner + 2 * dims.d_state), dtype=dt)
+    return x, ssm.Mamba2Cache(torch.stack(states), buf)
+
+
+def _zamba_mamba_decode(stacked, x, caches: ssm.Mamba2Cache, dims: ssm.Mamba2Dims):
+    """One token through the stacked Mamba2 layers; their caches (leading
+    layer axis) are written in place."""
+    for i in range(tf.n_layers_of(stacked)):
+        p = tf.layer_params(stacked, i)
+        out, mc = ssm.mamba2_decode_step(
+            p["core"], layers.rmsnorm(p["ln"], x),
+            ssm.Mamba2Cache(caches.state[i], caches.conv_buf[i]), dims)
+        x = x + out
+        caches.state[i] = mc.state
+        caches.conv_buf[i] = mc.conv_buf
+    return x
+
+
+def zamba_prefill(params, batch, cfg: ArchCfg):
+    """Prefill the prompt. Returns the last position's logits (B, 1, V) and
+    {"mamba_groups": (G, g, …) Mamba2 caches, "attn": the G ring caches
+    of the shared block, "mamba_tail": (tail, …) where the config has a
+    tail}. A ring cache holds W = min(S + 1, window) slots in the model's
+    dtype: the last W positions, right-padded with empty slots."""
+    dims = _zamba_dims(cfg)
+    G, g, tail = _zamba_layout(cfg)
+    dt = _dtype(cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    B, S, _ = x.shape
+    shared = params["shared_attn"]
+    W = min(S + 1, cfg.window) if cfg.window else S + 1
+    pos = torch.arange(S, device=x.device)
+    kv_shape = (G, B, W, cfg.n_kv, cfg.hd)
+    ks, vs = x.new_zeros(kv_shape, dtype=dt), x.new_zeros(kv_shape, dtype=dt)
+    n_kept = min(S, W)
+    kpos = torch.full((W,), attn.POS_SENTINEL, dtype=torch.int32, device=x.device)
+    kpos[:n_kept] = pos[S - n_kept:].to(torch.int32)
+    states, bufs = [], []
+    for gi in range(G):
+        x, mc = _zamba_mamba_prefill(tf.layer_params(params["mamba_groups_inner"], gi),
+                                     x, dims, dt)
+        states.append(mc.state)
+        bufs.append(mc.conv_buf)
+        hn = layers.rmsnorm(shared["ln1"], x)
+        q, k, v = attn.qkv(shared["attn"], hn, cfg.n_heads, cfg.n_kv, cfg.hd)
+        q = attn.rope(q, pos, theta=cfg.rope_theta)
+        k = attn.rope(k, pos, theta=cfg.rope_theta)
+        o = flash.flash_attention(q, k, v, causal=True, window=cfg.window)
+        x = x + layers.dense(shared["attn"]["wo"], o.reshape(B, S, cfg.n_heads * cfg.hd))
+        x = x + tf.ffn_apply(shared["ffn"], layers.rmsnorm(shared["ln2"], x), cfg)
+        ks[gi, :, :n_kept] = k[:, S - n_kept:]
+        vs[gi, :, :n_kept] = v[:, S - n_kept:]
+    st = {"mamba_groups": ssm.Mamba2Cache(torch.stack(states), torch.stack(bufs)),
+          "attn": attn.KVCache(ks, vs, kpos[None].repeat(G, 1), S)}
+    if tail:
+        x, st["mamba_tail"] = _zamba_mamba_prefill(params["mamba_tail"], x, dims, dt)
+    x = layers.rmsnorm(params["final_ln"], x[:, -1:, :])
+    return _final_logits(x, params, cfg), st
+
+
+def zamba_init_decode_state(cfg: ArchCfg, batch: int, kv_len: int, *,
+                            device="cuda"):
+    """Zero Mamba2 caches and G ring caches of min(kv_len, window) slots in
+    the model's dtype, with kv_len − 1 prior tokens, on `device` (the card
+    unless asked)."""
+    dev = resolve_device(device)
+    dims = _zamba_dims(cfg)
+    dt = _dtype(cfg)
+    G, g, tail = _zamba_layout(cfg)
+
+    def caches(*lead):
+        one = ssm.init_mamba2_cache(batch, dims, dt, device=dev)
+        return ssm.Mamba2Cache(*(t.expand(*lead, *t.shape).clone() for t in one))
+
+    w = min(kv_len, cfg.window) if cfg.window else kv_len
+    one = attn.init_cache(batch, w, cfg.n_kv, cfg.hd, dt, length=kv_len - 1, device=dev)
+    akv = attn.KVCache(one.k.expand(G, *one.k.shape).clone(),
+                       one.v.expand(G, *one.v.shape).clone(),
+                       one.pos.expand(G, *one.pos.shape).clone(), one.length)
+    st = {"mamba_groups": caches(G, g), "attn": akv}
+    if tail:
+        st["mamba_tail"] = caches(tail)
+    return st
+
+
+def zamba_decode_step(params, batch, state, cfg: ArchCfg):
+    """One greedy-decode step: batch["tokens"] (B, 1) → logits (B, 1, V);
+    every Mamba2 cache and ring cache is written in place."""
+    dims = _zamba_dims(cfg)
+    G, g, tail = _zamba_layout(cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    shared = params["shared_attn"]
+    state = dict(state)
+    mg, akv = state["mamba_groups"], state["attn"]
+    for gi in range(G):
+        x = _zamba_mamba_decode(tf.layer_params(params["mamba_groups_inner"], gi), x,
+                                ssm.Mamba2Cache(mg.state[gi], mg.conv_buf[gi]), dims)
+        cache = attn.KVCache(akv.k[gi], akv.v[gi], akv.pos[gi], akv.length)
+        x, _ = tf.block_decode(shared, x, cache, cfg, window=cfg.window)
+    state["attn"] = attn.KVCache(akv.k, akv.v, akv.pos, akv.length + 1)
+    if tail:
+        x = _zamba_mamba_decode(params["mamba_tail"], x, state["mamba_tail"], dims)
     x = layers.rmsnorm(params["final_ln"], x)
     return _final_logits(x, params, cfg), state
 

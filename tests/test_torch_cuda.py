@@ -182,6 +182,11 @@ FLASH_CASES = [
     (2, 40, 40, 4, 4, 64, True, 8, 50.0),             # reduced gemma2
     (1, 130, 130, 4, 2, 64, True, 0, None),           # every row masked
     (1, 130, 130, 4, 2, 64, False, 0, None),          # the last row sees no key
+    # hd 112 (zamba2-7b's shared attention), in the kernels' layout of 128
+    (1, 512, 512, 32, 32, 112, True, 4096, None),     # zamba2's heads and window
+    (2, 300, 300, 32, 8, 112, True, None, None),      # GQA, ragged
+    (2, 100, 257, 8, 2, 112, False, None, None),      # non-causal, Sq != Sk
+    (1, 200, 70, 4, 2, 112, True, 8, 50.0),           # Sq > Sk, window + softcap
 ]
 
 
@@ -210,7 +215,7 @@ def test_flash_attention_matches_plain(dev, B, Sq, Sk, H, n_kv, hd, causal,
 
 
 # bf16 only (the tensor-core kernel): hd 64 with ragged Sq and Sk, and the
-# llama3.2-3b and olmoe-1b-7b prefill layers at full size
+# llama3.2-3b, olmoe-1b-7b and zamba2-7b prefill layers at full size
 TC_FLASH_CASES = [
     (2, 200, 70, 4, 2, 64, True, None, None),         # Sq > Sk, ragged
     (1, 100, 257, 8, 2, 64, False, None, None),       # non-causal, ragged Sk
@@ -218,6 +223,8 @@ TC_FLASH_CASES = [
     (1, 1000, 1000, 16, 4, 64, True, None, None),     # many q tiles, ragged
     (4, 2048, 2048, 24, 8, 128, True, None, None),    # the main path's shape
     (4, 2048, 2048, 16, 16, 128, True, None, None),   # olmoe-1b-7b's prefill (group 1)
+    (4, 2048, 2048, 32, 32, 112, True, 4096, None),   # zamba2-7b's prefill (hd 112)
+    (2, 2048, 2048, 32, 32, 112, True, 512, None),    # hd 112, a window shorter than S
 ]
 
 
@@ -548,6 +555,53 @@ def test_moe_serve_on_the_card_matches_the_cpu(dev, arch, param_dtype):
     rep = check_served(card, cpu, card_log, cpu_log, dtype=param_dtype,
                        n_moe=cfg.n_layers - cfg.moe.n_dense_prefix, name=arch)
     print("\n".join(rep.lines(f"{arch} {param_dtype}")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_hybrid_serve_on_the_card_matches_the_cpu(dev, param_dtype):
+    """Reduced zamba2-7b (2 Mamba2 layers, then the shared attention block,
+    window 8) at prompt 128 (two SSD chunks; the ring wraps) served on the
+    card and on the CPU from the same weights: one flash launch a prefill
+    (on the tensor cores with bf16 weights), the same greedy ids, last
+    logits within 5e-4 of their scale with f32 weights and 3e-2 with
+    bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import get_model_api
+    cfg = dataclasses.replace(get_config("zamba2-7b", reduced=True),
+                              param_dtype=param_dtype)
+    params = get_model_api(cfg).init_params(torch.Generator().manual_seed(3), cfg)
+    kw = dict(reduced=True, batch=2, prompt_len=128, tokens=8, seed=5,
+              param_dtype=param_dtype)
+
+    def to(tree):
+        return {k: to(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    cpu = serve("zamba2-7b", device="cpu", params=params, **kw)
+    tc0 = flash_ops.tc_launches
+    card = serve("zamba2-7b", device=dev, params=to(params), **kw)
+    assert card.flash_launches == cfg.n_layers // cfg.attn_every == 1
+    assert flash_ops.tc_launches - tc0 == (1 if param_dtype == "bfloat16" else 0)
+    assert torch.equal(cpu.ids, card.ids.cpu())
+    rel = 5e-4 if param_dtype == "float32" else 3e-2
+    scale = cpu.last_logits.abs().max().item()
+    assert (cpu.last_logits - card.last_logits.cpu()).abs().max().item() <= rel * scale
+
+
+@pytest.mark.cuda
+def test_full_width_bf16_zamba_prefill_runs_the_tensor_core_kernel(dev):
+    """zamba2-7b at its published widths with bf16 weights: each of its 13
+    applications of the shared attention goes through the tensor-core
+    kernel at head width 112; the 3 tail layers have no attention."""
+    from repro_torch.launch.serve import serve
+    before = flash_ops.launches, flash_ops.tc_launches
+    res = serve("zamba2-7b", batch=1, prompt_len=256, tokens=2, device=dev)
+    assert res.flash_launches == 13
+    assert flash_ops.launches - before[0] == flash_ops.tc_launches - before[1] == 13
+    assert res.ids.shape == (1, 3) and torch.isfinite(res.last_logits).all()
 
 
 @pytest.mark.cuda

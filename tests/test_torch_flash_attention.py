@@ -43,6 +43,8 @@ SWEEP = [
     (1, 20, 12, 4, 2, 16, True, None, None),        # causal, Sq > Sk
     (1, 16, 16, 2, 1, 16, True, 2**30, None),       # a global layer's window
     (1, 16, 16, 2, 2, 16, False, 4, None),          # window without causal
+    (2, 24, 24, 4, 4, 112, True, 8, None),          # zamba2's head width, window
+    (1, 20, 12, 4, 2, 112, False, None, None),      # hd 112, GQA, Sq > Sk
 ]
 
 
@@ -83,6 +85,7 @@ def test_plain_matches_reference_oracle(B, Sq, Sk, H, n_kv, hd, causal, window,
     (1, 128, 128, 4, 2, 64, True, None, None),
     (1, 128, 256, 4, 1, 32, False, None, None),
     (1, 128, 128, 4, 2, 32, True, 48, 50.0),
+    (1, 128, 128, 4, 4, 112, True, 48, None),       # zamba2's head width
 ])
 def test_plain_matches_pallas_interpret(B, Sq, Sk, H, n_kv, hd, causal, window,
                                         softcap):
@@ -132,11 +135,15 @@ def _emulate_tc_kernel(q, k, v, causal, window, softcap, split=True):
     scale * log2 e, inside the exponent's FMA on tiles with no mask and no
     softcap); the online softmax in base 2 a tile at a time; P split into
     hi = bf16(p) and lo = bf16(p - hi), both multiplied by V into the f32
-    accumulator (`split=False`: hi alone). q, k, v: f32 tensors holding
-    bf16 values. Returns the bf16 output as f32."""
+    accumulator (`split=False`: hi alone). A head width short of a
+    multiple of 64 (112) runs in the next one's layout, its columns past
+    hd zero (TMA's zero fill), and the output keeps the first hd. q, k, v:
+    f32 tensors holding bf16 values. Returns the bf16 output as f32."""
+    hd_true = q.shape[-1]
+    scale = torch.tensor(1.0 / math.sqrt(hd_true), dtype=torch.float32)
+    q, k, v = (torch.nn.functional.pad(t, (0, -hd_true % 64)) for t in (q, k, v))
     B, Sq, H, hd = q.shape
     Sk, n_kv = k.shape[1], k.shape[2]
-    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
     c = scale * LOG2E
     pad = k.new_zeros(B, (-Sk) % TC_BK + TC_BK, n_kv, hd)   # TMA's zero fill
     kp = torch.cat([k, pad], 1).repeat_interleave(H // n_kv, 2)
@@ -201,7 +208,7 @@ def _emulate_tc_kernel(q, k, v, causal, window, softcap, split=True):
                     acc = acc + _bf16(p - hi) @ vt
             o = acc / torch.clamp(l, min=1e-30)[..., None]
             out[:, r_first:r_last + 1] = _bf16(o.permute(0, 2, 1, 3))
-    return out
+    return out[..., :hd_true]
 
 
 def _pallas_and_inputs(B, Sq, Sk, H, n_kv, hd, causal, window, softcap, seed):
@@ -227,6 +234,7 @@ def _over_limit(got, want):
     (1, 200, 70, 4, 2, 64, True, 8, None),           # Sq > Sk: rows with no key
     (1, 130, 130, 2, 2, 64, False, 0, None),         # the last row sees no key
     (2, 100, 257, 4, 2, 128, False, None, None),     # non-causal, ragged Sk
+    (1, 256, 256, 4, 4, 112, True, 64, None),        # hd 112 in the layout of 128
 ])
 def test_tc_kernel_arithmetic_matches_pallas_at_the_card_limit(
         B, Sq, Sk, H, n_kv, hd, causal, window, softcap):
